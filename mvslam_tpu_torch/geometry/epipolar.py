@@ -1,0 +1,286 @@
+"""Epipolar geometry: essential/homography solvers and decompositions.
+
+Port of the tracking step's part of ``mvslam_tpu/geometry/epipolar.py``.
+Everything is batched over leading axes (hypotheses, frames) and works in
+normalised camera coordinates. One reduction form throughout: the
+reference's ``pinned`` order-pinned variants exist only for bit-equality
+across TPU meshes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from mvslam_tpu_torch.geometry.linalg import det3x3, inv3x3, smallest_eigvec_psd, svd3x3
+from mvslam_tpu_torch.geometry.projection import hartley_normalization
+
+# Inverse-iteration counts for the null-space solves (the reference's
+# values; fewer refit iterations measurably hurt near-degenerate pairs).
+HYPOTHESIS_EIGVEC_ITERS = 10
+REFIT_EIGVEC_ITERS = 10
+
+
+def _homogeneous(pts: torch.Tensor) -> torch.Tensor:
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def _matvec3(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) applied to (..., N, 3) rows."""
+    return x @ M.transpose(-1, -2)
+
+
+def _smallest_singular_vector(
+    A: torch.Tensor, rescue: bool = True, iterations: int = HYPOTHESIS_EIGVEC_ITERS
+) -> torch.Tensor:
+    """Right singular vector of A (..., R, D) with the smallest singular
+    value: inverse iteration on AᵀA."""
+    return smallest_eigvec_psd(A.transpose(-1, -2) @ A, iterations=iterations, rescue=rescue)
+
+
+def essential_rows(
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """(..., N, 9) rows ``kron(x2, x1)`` of the 8-point system x2ᵀ E x1 = 0."""
+    x1 = _homogeneous(pts1)
+    x2 = _homogeneous(pts2)
+    A = (x2[..., :, :, None] * x1[..., :, None, :]).reshape(*x1.shape[:-1], 9)
+    if weights is not None:
+        A = A * weights[..., None]
+    return A
+
+
+def _invsqrt3x3_psd(C: torch.Tensor, iterations: int = 5) -> torch.Tensor:
+    """Newton–Schulz C^(−1/2) for (..., 3, 3) SPD with spectrum ⊂ (0, 3)."""
+    eye = torch.eye(3, dtype=C.dtype, device=C.device).expand(C.shape)
+    X = eye
+    for _ in range(iterations):
+        X = 0.5 * (X @ (3.0 * eye - C @ (X @ X)))
+    return X
+
+
+def essential_from_vec(e: torch.Tensor, exact_rank2: bool) -> torch.Tensor:
+    """E (..., 3, 3) from the null-space vector (..., 9).
+
+    ``exact_rank2=False`` (hypothesis batches): only project out the
+    smallest right-singular direction, E(I − v₃v₃ᵀ) (Sampson scoring is
+    scale-invariant). ``exact_rank2=True`` (refits): the full σ = (1, 1, 0)
+    spectrum via (E₂/σ̂)·C^(−1/2) with C = E₂ᵀE₂/σ̂² + v₃v₃ᵀ (see the
+    reference for the derivation).
+    """
+    E = e.reshape(*e.shape[:-1], 3, 3)
+    v3 = smallest_eigvec_psd(
+        E.transpose(-1, -2) @ E,
+        iterations=HYPOTHESIS_EIGVEC_ITERS if not exact_rank2 else REFIT_EIGVEC_ITERS,
+        rescue=False,
+    )
+    E2 = E - (E @ v3[..., :, None]) * v3[..., None, :]
+    if not exact_rank2:
+        return E2
+    A = E2.transpose(-1, -2) @ E2
+    s2 = (0.5 * ((A[..., 0, 0] + A[..., 1, 1]) + A[..., 2, 2])).clamp_min(1e-20)
+    C = A / s2[..., None, None] + v3[..., :, None] * v3[..., None, :]
+    C = C + 1e-6 * torch.eye(3, dtype=E.dtype, device=E.device)
+    return (E2 / torch.sqrt(s2)[..., None, None]) @ _invsqrt3x3_psd(C)
+
+
+def sampson_error(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+    """First-order geometric (Sampson) error of x2ᵀ E x1: (..., N) squared."""
+    x1 = _homogeneous(pts1)
+    x2 = _homogeneous(pts2)
+    Ex1 = _matvec3(E, x1)
+    Etx2 = _matvec3(E.transpose(-1, -2), x2)
+    prod = x2 * Ex1
+    num = ((prod[..., 0] + prod[..., 1]) + prod[..., 2]) ** 2
+    den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+    return num / torch.where(den < 1e-12, torch.full_like(den, 1e-12), den)
+
+
+def _two_ray_depths(R, t_vec, pts1, pts2):
+    """Per-point depths (z1, z2) from the 2x2 normal equations of
+    [f2 | -R f1] [z2; z1] = t (cam1 at identity).
+
+    R (..., 3, 3), t_vec (..., 3), pts (..., N, 2) → (..., N) each.
+    """
+    f1 = _homogeneous(pts1)
+    f2 = _homogeneous(pts2)
+    f2, Rf1 = torch.broadcast_tensors(f2, f1 @ R.transpose(-1, -2))
+    A = torch.stack([f2, -Rf1], dim=-1)  # (..., N, 3, 2)
+    b = t_vec[..., None, :, None].expand(A.shape[:-1] + (1,))  # (..., N, 3, 1)
+    AtA = A.transpose(-1, -2) @ A  # (..., N, 2, 2)
+    Atb = A.transpose(-1, -2) @ b  # (..., N, 2, 1)
+    det = AtA[..., 0, 0] * AtA[..., 1, 1] - AtA[..., 0, 1] * AtA[..., 1, 0]
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    z2 = (AtA[..., 1, 1] * Atb[..., 0, 0] - AtA[..., 0, 1] * Atb[..., 1, 0]) / det
+    z1 = (-AtA[..., 1, 0] * Atb[..., 0, 0] + AtA[..., 0, 0] * Atb[..., 1, 0]) / det
+    return z1, z2
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """x[..., idx, ...] along ``dim`` (negative, counted on x) for a batch
+    index tensor ``idx`` of shape x.shape[:dim]."""
+    tail = x.shape[dim + 1 :] if dim != -1 else ()
+    index = idx.reshape(*idx.shape, 1, *([1] * len(tail))).expand(*idx.shape, 1, *tail)
+    return torch.gather(x, dim, index).squeeze(dim)
+
+
+def decompose_essential(
+    E: torch.Tensor,
+    pts1: torch.Tensor,
+    pts2: torch.Tensor,
+    weights: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Recover (R, t) from E (..., 3, 3) by cheirality voting over the 4
+    candidates on pts (..., N, 2). Returns (R, unit t, cheirality count).
+
+    The rotation pair comes from Horn's closed form R = adj(E)ᵀ ∓ [t]×E on
+    E rescaled to ‖E‖_F = √2, then one Newton orthonormalisation step.
+    """
+    fnorm = torch.sqrt((E * E).sum(dim=(-2, -1)))
+    En = E * (math.sqrt(2.0) / fnorm.clamp_min(1e-20))[..., None, None]
+    t = smallest_eigvec_psd(En @ En.transpose(-1, -2), iterations=REFIT_EIGVEC_ITERS, rescue=True)
+    a, b, c = En[..., 0, 0], En[..., 0, 1], En[..., 0, 2]
+    d, e, f = En[..., 1, 0], En[..., 1, 1], En[..., 1, 2]
+    g, h, i = En[..., 2, 0], En[..., 2, 1], En[..., 2, 2]
+    cof = torch.stack(
+        [
+            torch.stack([e * i - f * h, f * g - d * i, d * h - e * g], dim=-1),
+            torch.stack([c * h - b * i, a * i - c * g, b * g - a * h], dim=-1),
+            torch.stack([b * f - c * e, c * d - a * f, a * e - b * d], dim=-1),
+        ],
+        dim=-2,
+    )  # adj(En)ᵀ
+    zero = torch.zeros_like(t[..., 0])
+    skew_t = torch.stack(
+        [
+            torch.stack([zero, -t[..., 2], t[..., 1]], dim=-1),
+            torch.stack([t[..., 2], zero, -t[..., 0]], dim=-1),
+            torch.stack([-t[..., 1], t[..., 0], zero], dim=-1),
+        ],
+        dim=-2,
+    )
+    txE = skew_t @ En
+    eye3 = torch.eye(3, dtype=E.dtype, device=E.device)
+
+    def _orthonormalize(R):
+        return R @ (1.5 * eye3 - 0.5 * (R.transpose(-1, -2) @ R))
+
+    R1 = _orthonormalize(cof - txE)
+    R2 = _orthonormalize(cof + txE)
+    Rs = torch.stack([R1, R1, R2, R2], dim=-3)  # (..., 4, 3, 3)
+    ts = torch.stack([t, -t, t, -t], dim=-2)  # (..., 4, 3)
+    z1, z2 = _two_ray_depths(Rs, ts, pts1[..., None, :, :], pts2[..., None, :, :])
+    good = ((z1 > 1e-6) & (z2 > 1e-6)).to(E.dtype)  # (..., 4, N)
+    if weights is not None:
+        good = good * weights[..., None, :]
+    counts = good.sum(dim=-1)
+    best = torch.argmax(counts, dim=-1)  # first maximum, like jnp.argmax
+    R_best = _take(Rs, best, -3)
+    t_best = _take(ts, best, -2)
+    t_norm = torch.sqrt((t_best * t_best).sum(dim=-1, keepdim=True))
+    t_best = t_best / torch.where(t_norm < 1e-12, torch.full_like(t_norm, 1e-12), t_norm)
+    return R_best, t_best, _take(counts, best, -1)
+
+
+def triangulate_normalized(
+    R: torch.Tensor, t: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor
+) -> torch.Tensor:
+    """Two-ray linear triangulation (cam1 at identity): (..., N, 3) in cam1."""
+    z1, _ = _two_ray_depths(R, t, pts1, pts2)
+    return _homogeneous(pts1) * z1[..., None]
+
+
+def homography_rows(
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hartley-normalised DLT constraint rows: ((..., 2N, 9), T1, T2)."""
+    n1, T1 = hartley_normalization(pts1, weights)
+    n2, T2 = hartley_normalization(pts2, weights)
+    x, y = n1[..., 0], n1[..., 1]
+    u, v = n2[..., 0], n2[..., 1]
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    row1 = torch.stack([-x, -y, -one, zero, zero, zero, u * x, u * y, u], dim=-1)
+    row2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], dim=-1)
+    if weights is not None:
+        row1 = row1 * weights[..., None]
+        row2 = row2 * weights[..., None]
+    return torch.cat([row1, row2], dim=-2), T1, T2
+
+
+def homography_from_vec(h: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+    """H (..., 3, 3) from the null-space vector (..., 9), denormalised,
+    scaled to H[2, 2] = 1."""
+    Hn = h.reshape(*h.shape[:-1], 3, 3)
+    H = inv3x3(T2) @ Hn @ T1
+    scale = H[..., 2:3, 2:3]
+    return H / torch.where(scale.abs() < 1e-12, torch.full_like(scale, 1e-12), scale)
+
+
+def symmetric_transfer_error(H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+    """Forward + backward squared transfer error of a homography: (..., N)."""
+    H_inv = inv3x3(H)
+
+    def transfer(M, pts):
+        y = _matvec3(M, _homogeneous(pts))
+        w = y[..., 2:3]
+        w = torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
+        return y[..., :2] / w
+
+    fwd = transfer(H, pts1) - pts2
+    bwd = transfer(H_inv, pts2) - pts1
+    return (fwd * fwd).sum(dim=-1) + (bwd * bwd).sum(dim=-1)
+
+
+def decompose_homography(
+    H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Calibrated homography (..., 3, 3) → (R, unit t, cheirality count).
+
+    Faugeras decomposition on the closed-form SVD H = U·diag(d1, d2, d3)·Vᵀ
+    (reflections folded into U and V): four sign combinations of
+    x1 = ±√((d1²−d2²)/(d1²−d3²)), x3 = ±√((d2²−d3²)/(d1²−d3²)) give
+    candidate (R, t), ranked by cheirality voting over the correspondences.
+    """
+    U, S, Vt = svd3x3(H)
+    U = U * det3x3(U)[..., None, None]
+    Vt = Vt * det3x3(Vt)[..., None, None]
+    d1, d2, d3 = S[..., 0], S[..., 1], S[..., 2]
+    denom = (d1 * d1 - d3 * d3).clamp_min(1e-12)
+    x1 = torch.sqrt(((d1 * d1 - d2 * d2) / denom).clamp(0.0, 1.0))
+    x3 = torch.sqrt(((d2 * d2 - d3 * d3) / denom).clamp(0.0, 1.0))
+    d2_safe = d2.clamp_min(1e-12)
+
+    signs = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, 1.0], [-1.0, -1.0]], dtype=H.dtype, device=H.device)
+    e1, e3 = signs[:, 0], signs[:, 1]  # (4,)
+    d1_, d3_, x1_, x3_, d2s = (v[..., None] for v in (d1, d3, x1, x3, d2_safe))  # (..., 1)
+    s_theta = (d1_ - d3_) * (e1 * x1_) * (e3 * x3_) / d2s  # (..., 4)
+    c_theta = ((d1_ * x3_ * x3_ + d3_ * x1_ * x1_) / d2s).expand_as(s_theta)
+    zero = torch.zeros_like(s_theta)
+    one = torch.ones_like(s_theta)
+    Rp = torch.stack(
+        [
+            torch.stack([c_theta, zero, -s_theta], dim=-1),
+            torch.stack([zero, one, zero], dim=-1),
+            torch.stack([s_theta, zero, c_theta], dim=-1),
+        ],
+        dim=-2,
+    )  # (..., 4, 3, 3)
+    tp = (d1_ - d3_)[..., None] * torch.stack([e1 * x1_, zero, -e3 * x3_], dim=-1)  # (..., 4, 3)
+    Rs = U[..., None, :, :] @ Rp @ Vt[..., None, :, :]
+    ts = (U[..., None, :, :] @ tp[..., :, None])[..., 0]
+
+    norm = torch.sqrt((ts * ts).sum(dim=-1, keepdim=True))
+    t_unit = ts / torch.where(norm < 1e-9, torch.ones_like(norm), norm)
+    pts = triangulate_normalized(Rs, t_unit, pts1[..., None, :, :], pts2[..., None, :, :])
+    z1 = pts[..., 2]
+    cam2 = pts @ Rs.transpose(-1, -2) + t_unit[..., None, :]
+    counts = ((z1 > 1e-6) & (cam2[..., 2] > 1e-6)).sum(dim=-1)  # (..., 4)
+    best = torch.argmax(counts, dim=-1)  # first maximum, like jnp.argmax
+    R_best = _take(Rs, best, -3)
+    t_best = _take(ts, best, -2)
+    t_norm = torch.sqrt((t_best * t_best).sum(dim=-1, keepdim=True))
+    t_best = t_best / torch.where(t_norm < 1e-9, torch.ones_like(t_norm), t_norm)
+    return R_best, t_best, _take(counts, best, -1)
