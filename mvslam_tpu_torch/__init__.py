@@ -5,11 +5,14 @@ The port mirrors the JAX package's module names (``ops``, ``geometry``,
 find, and is tested against it on identical numpy inputs. It imports
 ``torch`` and never ``jax``.
 
-Slice 1 covers the per-frame tracking step (``slam.tracking``): FAST-9
-detection, steered BRIEF, Hamming matching, dual-model RANSAC and the pose
-estimator. The two Pallas kernels of the reference run as hand-written
-CUDA kernels (``csrc/``) on CUDA tensors; CPU tensors take each kernel's
-plain PyTorch version.
+It covers the ``SLAMSystem`` entry point (``slam.api``), the tracking step
+(``slam.tracking``: FAST-9 detection, steered BRIEF, Hamming matching,
+dual-model RANSAC and the pose estimator), flow-first tracking with
+pyramidal Lucas-Kanade (``ops.lk``), and the numpy host modules these use
+(``core``, ``backend.keyframes``, ``runtime.frame_stream``, ``eval``,
+``data.synthetic``). The two Pallas kernels of the reference run as
+hand-written CUDA kernels (``csrc/``) on CUDA tensors; CPU tensors take
+each kernel's plain PyTorch version.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Threefry PRNG port and the CUDA kernel build (``core.prng``, ``core.cuda_build``)."""
+"""Threefry PRNG port, CUDA kernel build, and the host core: determinism,
+hashing, run artifacts, persistence and telemetry."""

@@ -1,1 +1,1 @@
-"""The fused tracking step (port of ``mvslam_tpu.slam.tracking``)."""
+"""The SLAMSystem entry point and the fused tracking step (port of ``mvslam_tpu.slam``)."""

@@ -9,11 +9,16 @@ against the JAX package reads the port's output unchanged.
 
 ``track_superwindow`` runs its windows in a Python loop (the reference's
 ``lax.scan``); every stage inside a window is batched over the window.
+
+``track_frame_flow`` is the flow-first step (pose from pyramidal LK tracks
+of the previous keypoints, ``ops.lk``), and ``match_and_estimate`` the
+matching fallback over two already-extracted feature sets.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +40,7 @@ from mvslam_tpu_torch.ops.hamming import (
     select_matches,
 )
 from mvslam_tpu_torch.ops.image import rgb_to_gray
+from mvslam_tpu_torch.ops.lk import LKConfig, lk_track
 
 _SCALAR_FIELDS = (
     "use_essential",
@@ -143,6 +149,9 @@ def bootstrap_frame(frame: torch.Tensor, feature_config: FeaturePipelineConfig) 
     return _index(_detect_describe(frame[None], feature_config), 0)
 
 
+frame_to_gray = rgb_to_gray  # (H, W[, 3]) frame → the flow path's (H, W) float32 image
+
+
 def _track_pairs(
     keys: torch.Tensor,
     f1: FeatureSet,
@@ -185,6 +194,79 @@ def track_frame(
     prev = _stack([prev_features])
     track = _track_pairs(key[None], prev, features, K, feature_config, pose_config)
     return _index(features, 0), _index(track, 0)
+
+
+def track_frame_flow(
+    key: torch.Tensor,
+    prev_gray: torch.Tensor,
+    prev_features: FeatureSet,
+    frame: torch.Tensor,
+    K: torch.Tensor,
+    feature_config: FeaturePipelineConfig,
+    pose_config: RobustPoseEstimatorConfig,
+    lk_config: Optional[LKConfig] = None,
+) -> Tuple[torch.Tensor, FeatureSet, TrackResult]:
+    """Flow-first tracking: the pose comes from pyramidal LK tracks of the
+    previous frame's keypoints; the new frame's features are still
+    detected (keyframes and the matching fallback need them).
+
+    Returns ``(gray, features, track)``: ``gray`` seeds the next call's
+    ``prev_gray``; ``track.num_matches`` counts valid LK tracks.
+    """
+    lk_config = lk_config or LKConfig()
+    gray = rgb_to_gray(frame)
+    features = _index(_detect_describe(frame[None], feature_config), 0)
+    nxt_pts, residuals, flow_valid = lk_track(
+        prev_gray, gray, prev_features.xy, prev_features.valid, lk_config
+    )
+    pose = _index(
+        estimate_pose_device(key[None], prev_features.xy[None], nxt_pts[None], flow_valid[None], K, pose_config),
+        0,
+    )
+    num_tracks = flow_valid.sum().to(torch.int32)
+    num_features = features.valid.sum().to(torch.int32)
+    track = TrackResult(
+        pose=pose,
+        matched_p1=prev_features.xy,
+        matched_p2=nxt_pts,
+        match_mask=flow_valid,
+        match_distances=residuals,
+        num_matches=num_tracks,
+        num_features=num_features,
+        scalars_packed=_pack_values(pose, num_tracks, num_features),
+        features_packed=_pack_features(features),
+    )
+    return gray, features, track
+
+
+def match_and_estimate(
+    key: torch.Tensor,
+    prev_features: FeatureSet,
+    cur_features: FeatureSet,
+    K: torch.Tensor,
+    feature_config: FeaturePipelineConfig,
+    pose_config: RobustPoseEstimatorConfig,
+) -> TrackResult:
+    """Match two already-extracted feature sets and estimate the pose,
+    with ``key`` used as is."""
+    track = _track_pairs(
+        key[None], _stack([prev_features]), _stack([cur_features]), K, feature_config, pose_config
+    )
+    return _index(track, 0)
+
+
+def feature_set_from_arrays(xy, descriptors, valid, device=None) -> FeatureSet:
+    """Host arrays ``(xy (N, 2), descriptors (N, 8) uint32, valid (N,))`` →
+    a FeatureSet on ``device``, descriptor words reinterpreted as int32."""
+    n = len(valid)
+    words = np.ascontiguousarray(descriptors, dtype=np.uint32).view(np.int32)
+    return FeatureSet(
+        xy=torch.tensor(np.asarray(xy, dtype=np.float32), device=device),
+        scores=torch.zeros((n,), dtype=torch.float32, device=device),
+        descriptors=torch.tensor(words, device=device),
+        angles=torch.zeros((n,), dtype=torch.float32, device=device),
+        valid=torch.tensor(np.asarray(valid, dtype=bool), device=device),
+    )
 
 
 def track_window(
@@ -240,9 +322,29 @@ def track_superwindow(
     return prev, _stack(tracks)
 
 
+_FEATURE_FETCH_CACHE: "OrderedDict[int, tuple]" = OrderedDict()
+_FEATURE_FETCH_CACHE_CAP = 8
+
+
 def pull_features(track: TrackResult):
-    """Numpy (xy, descriptors uint32, valid) of the tracked frame(s)."""
-    return unpack_features(track.features_packed.cpu().numpy())
+    """Numpy (xy, descriptors uint32, valid) of the tracked frame(s).
+
+    ONE device-to-host copy per ``features_packed`` buffer (LRU keyed by
+    the tensor's id): every keyframe of a window reads the same copy.
+    """
+    buf = track.features_packed
+    key = id(buf)
+    entry = _FEATURE_FETCH_CACHE.get(key)
+    # The entry holds its buffer: while it lives, its id cannot be reused,
+    # and the identity check makes a reused id after eviction harmless.
+    if entry is None or entry[0] is not buf:
+        entry = (buf, unpack_features(buf.cpu().numpy()))
+        _FEATURE_FETCH_CACHE[key] = entry
+        while len(_FEATURE_FETCH_CACHE) > _FEATURE_FETCH_CACHE_CAP:
+            _FEATURE_FETCH_CACHE.popitem(last=False)
+    else:
+        _FEATURE_FETCH_CACHE.move_to_end(key)
+    return entry[1]
 
 
 def pull_scalars(track: TrackResult) -> dict:

@@ -1,4 +1,5 @@
-"""CUDA kernels K1 and K2 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1 and K2 against their plain PyTorch versions, on the card,
+alone and inside LK and ``SLAMSystem``.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``); without a
 card they skip. This file imports no JAX, so it also runs on a machine
@@ -83,3 +84,48 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_patches.extract_patches(image, torch.zeros((1, 4, 2)))  # xy on the CPU
     with pytest.raises(ValueError):
         cuda_patches.extract_patches(image, torch.zeros((1, 4, 2), device=cuda), out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("shape", [(128, 160), (130, 170)])
+def test_lk_track_with_kernel_matches_plain(cuda, shape):
+    """LK on the card: every window from K2 (30 launches for 3 levels of 8
+    iterations), bit-equal to LK with K2's plain version."""
+    from unittest import mock
+
+    from mvslam_tpu_torch.ops import lk
+
+    h, w = shape
+    prev = torch.from_numpy(_textured(1, h, w)[0]).to(cuda)
+    nxt = torch.roll(prev, shifts=(2, -3), dims=(0, 1))
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(-10, [w + 10, h + 10], size=(300, 2)).astype(np.float32)).to(cuda)
+    mask = torch.ones(300, dtype=torch.bool, device=cuda)
+    before = cuda_patches.extract_patches.launches
+    got = lk.lk_track(prev, nxt, pts, mask)
+    assert cuda_patches.extract_patches.launches == before + 3 * (8 + 2)
+    with mock.patch.object(cuda_patches, "extract_patches", cuda_patches.extract_patches_plain):
+        ref = lk.lk_track(prev, nxt, pts, mask)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert got[2].sum() > 50
+
+
+def test_slam_system_on_the_card_launches_both_kernels(cuda, tmp_path):
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    frames, _, (fx, fy, cx, cy), _ = render_scene(num_frames=6, h=240, w=320, seed=1)
+    cfg = SLAMSystemConfig(
+        output_root=tmp_path, fx=fx, fy=fy, cx=cx, cy=cy, pose_source="flow_first",
+        feature=FeaturePipelineConfig(num_features=256, max_matches=128),
+        pose=RobustPoseEstimatorConfig(num_hypotheses=128),
+        enable_local_ba=False, enable_relocalization=False, persist_map_snapshot=False,
+    )
+    k1, k2 = cuda_fast.fast_detect.launches, cuda_patches.extract_patches.launches
+    diags = SLAMSystem(cfg, device=cuda).run_sequence(frames, window=1)
+    assert sum(d.pose_success for d in diags) >= 5
+    assert cuda_fast.fast_detect.launches - k1 == 6
+    assert cuda_patches.extract_patches.launches - k2 >= 6 + 5 * 30

@@ -18,6 +18,7 @@ import torch
 
 from torch_parity import desc_u32, sliding_frames, t, to_np
 
+from mvslam_tpu.data.synthetic import render_scene
 from mvslam_tpu.frontend import feature_pipeline as jfp
 from mvslam_tpu.frontend import pose_estimator as jpose
 from mvslam_tpu.ops import brief as jbrief
@@ -180,3 +181,127 @@ def test_superwindow_rejects_ragged_input():
             prng.key(0), prev, torch.zeros((5, 64, 96), dtype=torch.uint8), t(K), fc,
             tpose.RobustPoseEstimatorConfig(**PC), window=3,
         )
+
+
+@pytest.fixture(scope="module", params=["scene", "planar"])
+def rendered_runs(request):
+    """track_superwindow over 9 rendered frames (240x320, 512 features) of a
+    3-D scene and of a planar one, in both packages."""
+    frames, _, (fx, fy, cx, cy), _ = render_scene(num_frames=9, h=240, w=320, seed=0, planar=request.param == "planar")
+    frames = np.stack(frames)
+    k = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], np.float32)
+    fc, pc = dict(num_features=512, max_matches=256), dict(num_hypotheses=128)
+    jfc, jpc = jfp.FeaturePipelineConfig(**fc), jpose.RobustPoseEstimatorConfig(**pc)
+    jprev = jtrack.bootstrap_frame(jnp.asarray(frames[0]), jfc)
+    _, jtr = jtrack.track_superwindow(
+        jax.random.key(0), jprev, jnp.asarray(frames[1:]), jnp.asarray(k), jfc, jpc,
+        window=4, start_index=jnp.asarray(1, jnp.int32),
+    )
+    tfc, tpc = tfp.FeaturePipelineConfig(**fc), tpose.RobustPoseEstimatorConfig(**pc)
+    prev = ttrack.bootstrap_frame(t(frames[0]), tfc)
+    _, tr = ttrack.track_superwindow(prng.key(0), prev, t(frames[1:]), t(k), tfc, tpc, window=4, start_index=1)
+    return request.param, jtrack.pull_scalars(jtr), ttrack.pull_scalars(tr)
+
+
+def test_model_selection_on_rendered_scenes(rendered_runs):
+    """The E/H decision agrees on every pair of a 3-D and of a planar scene.
+    ``homography_share`` agrees within one support vote wherever both
+    packages end RANSAC on the same two models (scores within 1%): where the
+    best E hypotheses are near-tied, f32 rounding in the 8-point null vector
+    picks the winner in either package, and the share follows the model."""
+    name, js, s = rendered_runs
+    assert (js["num_matches"] > 200).all()
+    assert np.array_equal(s["use_essential"], js["use_essential"])
+    if name == "planar":
+        assert not js["use_essential"].any()
+    else:
+        assert js["use_essential"].any() and not js["use_essential"].all()
+
+    def close(key):
+        return np.abs(s[key] - js[key]) <= 0.01 * np.abs(js[key])
+
+    same_models = close("essential_score") & close("homography_score")
+    # One support vote moves the share by 2 / (s_h + s_e) >= 1 / (2 n).
+    one_vote = 1.0 / (2.0 * js["num_valid_matches"])
+    share_err = np.abs(s["homography_share"] - js["homography_share"])
+    assert (share_err[same_models] <= one_vote[same_models]).all(), (share_err, same_models)
+    assert same_models.sum() >= 2, same_models  # the check is not vacuous
+
+
+def test_pull_features_copies_each_buffer_once(runs, monkeypatch):
+    """Every keyframe of a dispatch reads one host copy of its buffer: two
+    providers on one TrackResult make one device-to-host copy, and the
+    cache entry holds its buffer."""
+    _, _, (_, _, tr) = runs
+    copies = []
+    real = ttrack.unpack_features
+    monkeypatch.setattr(ttrack, "unpack_features", lambda packed: copies.append(1) or real(packed))
+    monkeypatch.setattr(ttrack, "_FEATURE_FETCH_CACHE", type(ttrack._FEATURE_FETCH_CACHE)())
+    providers = [lambda i=i: ttrack.pull_features(tr)[1][i] for i in range(2)]
+    first, second = (p() for p in providers)
+    assert len(copies) == 1
+    assert np.array_equal(first, jtrack.unpack_features(to_np(tr.features_packed))[1][0])
+    entry = ttrack._FEATURE_FETCH_CACHE[id(tr.features_packed)]
+    assert entry[0] is tr.features_packed
+    # A stale entry under the same id (a freed buffer's id reused) is replaced.
+    other = tr.features_packed.clone()
+    ttrack._FEATURE_FETCH_CACHE[id(tr.features_packed)] = (other, "stale")
+    assert ttrack.pull_features(tr)[0].shape == tr.features_packed.shape[:-1] + (2,)
+    assert len(copies) == 2 and ttrack._FEATURE_FETCH_CACHE[id(tr.features_packed)][0] is tr.features_packed
+    # The cache holds at most its capacity of buffers, least recent out first.
+    for _ in range(ttrack._FEATURE_FETCH_CACHE_CAP + 2):
+        ttrack.pull_features(tr._replace(features_packed=tr.features_packed.clone()))
+    assert len(ttrack._FEATURE_FETCH_CACHE) == ttrack._FEATURE_FETCH_CACHE_CAP
+    assert id(tr.features_packed) not in ttrack._FEATURE_FETCH_CACHE
+
+
+def test_feature_set_from_arrays_round_trips_reference_words(runs):
+    """The reference's uint32 words become the port's int32 words, bit for bit."""
+    _, (jprev, _, _), (prev, _, _) = runs
+    fs = ttrack.feature_set_from_arrays(np.asarray(jprev.xy), np.asarray(jprev.descriptors), np.asarray(jprev.valid))
+    assert fs.descriptors.dtype == torch.int32
+    assert torch.equal(fs.descriptors, prev.descriptors)
+    assert torch.equal(fs.valid, prev.valid) and torch.equal(fs.xy, prev.xy)
+
+
+def test_match_and_estimate_equals_reference(runs):
+    """The flow path's fallback: matching two given feature sets, the same
+    match pairs and pose as the reference's."""
+    frames, (jprev, _, _), (prev, _, _) = runs
+    jfc, jpc = jfp.FeaturePipelineConfig(**FC), jpose.RobustPoseEstimatorConfig(**PC)
+    fc, pc = tfp.FeaturePipelineConfig(**FC), tpose.RobustPoseEstimatorConfig(**PC)
+    jcur = jtrack.bootstrap_frame(jnp.asarray(frames[2]), jfc)
+    jtr = jtrack.match_and_estimate(jax.random.key(4), jprev, jcur, jnp.asarray(K), jfc, jpc)
+    cur = ttrack.feature_set_from_arrays(np.asarray(jcur.xy), np.asarray(jcur.descriptors), np.asarray(jcur.valid))
+    tr = ttrack.match_and_estimate(prng.key(4), prev, cur, t(K), fc, pc)
+    assert np.array_equal(to_np(tr.match_mask), np.asarray(jtr.match_mask))
+    assert np.abs(to_np(tr.matched_p2) - np.asarray(jtr.matched_p2)).max() <= 1e-6
+    s, js = ttrack.pull_scalars(tr), jtrack.pull_scalars(jtr)
+    assert s["num_matches"] == js["num_matches"] > 0 and s["use_essential"] == js["use_essential"]
+    assert abs(s["num_inliers"] - js["num_inliers"]) <= 2
+    assert np.linalg.norm(s["rotation"] - js["rotation"]) < 1e-3
+
+
+def test_track_frame_flow_equals_reference(runs):
+    """Flow-first step: the same features, LK tracks within 1e-3 px, the
+    same valid tracks, and the pose of those tracks."""
+    frames, (jprev, _, _), (prev, _, _) = runs
+    jfc, jpc = jfp.FeaturePipelineConfig(**FC), jpose.RobustPoseEstimatorConfig(**PC)
+    fc, pc = tfp.FeaturePipelineConfig(**FC), tpose.RobustPoseEstimatorConfig(**PC)
+    jgray = jtrack.frame_to_gray(jnp.asarray(frames[0]))
+    gray = ttrack.frame_to_gray(t(frames[0]))
+    assert np.array_equal(to_np(gray), np.asarray(jgray))
+    jg, jfeat, jtr = jtrack.track_frame_flow(jax.random.key(2), jgray, jprev, jnp.asarray(frames[1]), jnp.asarray(K), jfc, jpc)
+    g, feat, tr = ttrack.track_frame_flow(prng.key(2), gray, prev, t(frames[1]), t(K), fc, pc)
+    assert np.array_equal(to_np(g), np.asarray(jg))
+    assert np.array_equal(desc_u32(feat.descriptors), np.asarray(jfeat.descriptors))
+    assert np.array_equal(to_np(tr.match_mask), np.asarray(jtr.match_mask))
+    assert np.abs(to_np(tr.matched_p2) - np.asarray(jtr.matched_p2)).max() <= 1e-3
+    s, js = ttrack.pull_scalars(tr), jtrack.pull_scalars(jtr)
+    assert s["num_matches"] == js["num_matches"] >= 100
+    assert s["num_features"] == js["num_features"]
+    assert s["use_essential"] == js["use_essential"]
+    assert abs(s["num_inliers"] - js["num_inliers"]) <= 2
+    assert np.linalg.norm(s["rotation"] - js["rotation"]) < 1e-3
+    assert np.abs(s["median_displacement_px"] - js["median_displacement_px"]) < 1e-3
+    assert torch.equal(tr.features_packed.view(torch.int32), ttrack._pack_features(feat).view(torch.int32))
