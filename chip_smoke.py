@@ -10,20 +10,32 @@ and prints no ok line):
 
 1. device  — ``nvidia-smi`` name and power limit, torch's device name.
 2. build   — nvcc builds both CUDA kernels from ``mvslam_tpu_torch/csrc``.
-3. K1      — ``fast_detect`` against its plain version on 16 bench frames
-             (16, 370, 1226) uint8, and on 16 frames of the slam phase's
-             rendered scene (float32, the kernel's f32 path): detections
-             bit-equal, raw bit-equal on the interior; kernel and plain
-             times (CUDA events, median).
+3. K1      — ``fast_detect`` against its plain version on four inputs:
+             16 bench frames (16, 370, 1226) uint8 and one (the main
+             path's window and bootstrap), 16 frames of the slam phase's
+             rendered scene (float32, the kernel's f32 route) and one
+             rendered frame (the flow path's call): detections and raw
+             scores bit-equal over the whole map; kernel and plain times
+             (CUDA events, median), device time (``torch.profiler``, mean
+             of 20 launches) against the bound from the shapes.
+3b. k1_ab  — only with ``--ab OLD.cu``, right after K1: builds OLD.cu (an
+             earlier ``fast_detect.cu``) and the current one side by side
+             with ``-Xptxas -v`` (registers, shared memory, spills), checks
+             both bit-equal to the plain version, and times them in turns
+             (old, new, new, old; device time) on both routes at B = 16
+             and B = 1.
 4. K2      — ``extract_patches`` against its plain version, (16, 370, 1226)
              f32 image and (16, 2048, 2) keypoints including border-clamped
-             and exact .5 coordinates; bf16 output bit-equal; both times.
+             and exact .5 coordinates; bf16 output bit-equal; kernel, plain
+             and device times, the bound, and one PyTorch gather on
+             precomputed starts as the yardstick (``library_ms``).
 5. k2_lk   — ``extract_patches`` with float32 output at the LK pyramid's
              shapes (1, 370, 1226), (1, 185, 613), (1, 92, 306), 2048
              points including the clamped border band: bit-equal to the
-             plain version; kernel and plain times per level.
+             plain version; the same times, bound and yardstick per level.
 6. main    — ``bootstrap_frame`` + ``track_superwindow`` over the bench's
-             193 frames with the bench configuration (2048 features, 512
+             193 frames (``data.bench_frames``, the benchmark's frames)
+             with the bench configuration (2048 features, 512
              matches, 512 E + 256 H hypotheses, window 16, 6 windows per
              call, key 0): all 192 frames tracked, both kernels launched,
              the first window's features equal a run of the plain
@@ -42,12 +54,16 @@ and prints no ok line):
 
 Kernel launches are counted per path: the counts are set to 0 just
 before each of main, slam and flow and read just after. The
-second-to-last line is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
+second-to-last line is the per-kernel JSON record (per route: event,
+plain, device and yardstick times, the bound and the share of it reached);
+the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device;
+imports no JAX and nothing of the reference package.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -57,6 +73,13 @@ from pathlib import Path
 from unittest import mock
 
 REPO = Path(__file__).resolve().parent
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
+# float32 outside the tensor cores. A bound is the larger of bytes (each
+# input read once, each output written once) over the first and operations
+# over the second.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+K1_OPS_PER_PX = 180  # the reference kernel's own cost estimate (pallas_fast.py:160)
 THRESHOLD = 20.0
 MARGIN = 19
 NUM_FRAMES = 193
@@ -64,7 +87,7 @@ WINDOW = 16
 WINDOWS_PER_CALL = 6
 NUM_FEATURES = 2048
 BENCH_K = [[718.856, 0.0, 607.19], [0.0, 718.856, 185.22], [0.0, 0.0, 1.0]]
-FRAME_SHIFT_PX = 6.0  # bench.make_frames slides its texture 6 px per frame
+FRAME_SHIFT_PX = 6.0  # make_frames slides its texture 6 px per frame
 LK_SHAPES = [(1, 370, 1226), (1, 185, 613), (1, 92, 306)]  # LK's three pyramid levels
 # The rendered scene of the slam and flow phases: 1 + 96 frames at the
 # bench's 1226x370, 400 textured quads, the camera sliding 0.1 units along
@@ -103,6 +126,50 @@ def median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str | None = None, iters: int = 20):
+    """Device time (ms) per call of ``fn``, mean over ``iters`` calls, from
+    ``torch.profiler``: the duration of the CUDA kernels whose name contains
+    ``kernel`` (exactly one per call), or of every device activity when
+    ``kernel`` is None. The profiler now and then drops a record (seen on
+    the H100: 19 of 20 launches), so each kernel's time is the mean over the
+    launches it recorded, times its launches per call. None when the
+    profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_call_us, seen = 0.0, 0
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA and event.count and (kernel is None or kernel in event.key):
+            per_call_us += event.device_time_total / event.count * max(1, round(event.count / iters))
+            seen += event.count
+    if per_call_us == 0.0:
+        return None
+    if kernel is not None and not iters // 2 <= seen <= iters:
+        raise AssertionError(f"profiler saw {seen} launches of {kernel} for {iters} calls")
+    return per_call_us / 1e3
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    """The least time (ms) the card could take: bytes over HBM bandwidth or
+    operations over the float32 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def with_share(record: dict) -> dict:
+    dev = record.get("device_ms")
+    record["bound_share"] = record["bound_ms"] / dev if dev else None
+    return record
+
+
 def phase_device():
     import torch
 
@@ -129,40 +196,191 @@ def phase_build() -> float:
     return seconds
 
 
-def phase_k1(frames_u8, frames_f32):
-    """K1 on the main path's uint8 window and on the slam path's float32
-    window (rendered frames: the kernel's f32 path)."""
+def k1_label(x) -> str:
+    return f"{str(x.dtype).replace('torch.', '')} {tuple(x.shape)}"
+
+
+def k1_bound(x) -> dict:
+    """K1 reads each pixel once and writes det and raw (f32) once; the
+    operations are the reference kernel's own estimate per pixel."""
+    return bound(x.numel() * (x.element_size() + 8), x.numel() * K1_OPS_PER_PX)
+
+
+def k1_route(x) -> dict:
+    """K1 on one input: bit-equal to its plain version over the whole map,
+    with event, plain and device times against the bound."""
     import torch
 
     from mvslam_tpu_torch.ops.cuda_fast import fast_detect, fast_detect_plain
 
-    inner = (slice(None), slice(4, -4), slice(4, -4))
-    results = {}
-    for dtype, x in (("uint8", frames_u8[:16]), ("float32", frames_f32[:16])):
-        det_k, raw_k = fast_detect(x, THRESHOLD, MARGIN)
-        det_p, raw_p = fast_detect_plain(x, THRESHOLD, MARGIN)
-        torch.cuda.synchronize()
-        err = max(
-            (det_k - det_p).abs().max().item(), (raw_k[inner] - raw_p[inner]).abs().max().item()
-        )
-        if not (torch.equal(det_k, det_p) and torch.equal(raw_k[inner], raw_p[inner])):
-            raise AssertionError(f"K1 fast_detect ({dtype}) disagrees with its plain version (max abs err {err})")
-        results[dtype] = {
-            "shape": list(x.shape), "dtype": dtype, "detections": int((det_k > 0).sum()), "bit_equal": True,
-            "max_abs_err": err, "ms": median_ms(lambda: fast_detect(x, THRESHOLD, MARGIN)),
-            "plain_ms": median_ms(lambda: fast_detect_plain(x, THRESHOLD, MARGIN)),
-        }
-    main = results["uint8"]
+    det_k, raw_k = fast_detect(x, THRESHOLD, MARGIN)
+    det_p, raw_p = fast_detect_plain(x, THRESHOLD, MARGIN)
+    torch.cuda.synchronize()
+    err = max((det_k - det_p).abs().max().item(), (raw_k - raw_p).abs().max().item())
+    label = k1_label(x)
+    if not (torch.equal(det_k, det_p) and torch.equal(raw_k, raw_p)):
+        raise AssertionError(f"K1 fast_detect ({label}) disagrees with its plain version (max abs err {err})")
+    return with_share({
+        "route": label, "detections": int((det_k > 0).sum()), "bit_equal": True, "max_abs_err": err,
+        "ms": median_ms(lambda: fast_detect(x, THRESHOLD, MARGIN)),
+        "plain_ms": median_ms(lambda: fast_detect_plain(x, THRESHOLD, MARGIN)),
+        "device_ms": device_ms(lambda: fast_detect(x, THRESHOLD, MARGIN), "fast_detect_kernel"),
+        **k1_bound(x),
+    })
+
+
+def phase_k1(frames_u8, frames_f32):
+    """K1 on the main path's uint8 window and bootstrap frame, on the slam
+    path's float32 window (rendered frames: the kernel's f32 route) and on
+    one rendered frame (the flow path's call)."""
+    routes = [k1_route(x) for x in (frames_u8[:16], frames_f32[:16], frames_u8[:1], frames_f32[:1])]
+    main = routes[0]
     record = {
         "name": "fast_detect", "route": "cuda", "source": "mvslam_tpu_torch/csrc/fast_detect.cu",
-        "replaces": "mvslam_tpu/ops/pallas_fast.py:125", "max_abs_err": max(r["max_abs_err"] for r in results.values()),
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "f32": results["float32"],
+        "replaces": "mvslam_tpu/ops/pallas_fast.py:125", "max_abs_err": max(r["max_abs_err"] for r in routes),
+        **{k: main[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "bound_share")},
+        "library_ms": None, "library": "none: no single PyTorch call computes FAST-9 + 3x3 NMS + border mask",
+        "routes": routes,
     }
-    emit({"phase": "k1", **main, "f32": results["float32"]})
+    emit({"phase": "k1", "routes": routes})
     return record
 
 
+def build_k1_variant(src: Path, tag: str):
+    """``src`` (a ``fast_detect.cu``) alone into its own library, with
+    ``-Xptxas -v``; returns (ctypes library, ptxas report lines)."""
+    from mvslam_tpu_torch.core import cuda_build
+
+    out = REPO / "mvslam_tpu_torch" / "_build" / "ab" / f"libfast_detect_{tag}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [cuda_build.nvcc_path(), *cuda_build._NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(out))
+    for name in ("fast_detect_u8", "fast_detect_f32"):
+        getattr(lib, name).argtypes = cuda_build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    report = [line.split(":", 1)[-1].strip() for line in proc.stderr.splitlines()
+              if line.startswith("ptxas info") or "spill" in line]
+    return lib, report
+
+
+def phase_k1_ab(old_src: Path, frames_u8, frames_f32):
+    """The earlier K1 (``old_src``) against the current one in one process:
+    both bit-equal to the plain version, device times in turns (old, new,
+    new, old) on the uint8 and float32 routes at B = 16 and B = 1."""
+    import torch
+
+    from mvslam_tpu_torch.ops.cuda_fast import fast_detect_plain
+
+    libs, ptxas = {}, {}
+    for tag, src in (("old", old_src), ("new", REPO / "mvslam_tpu_torch" / "csrc" / "fast_detect.cu")):
+        libs[tag], ptxas[tag] = build_k1_variant(src, tag)
+    emit({"phase": "k1_ab_build", "ptxas": ptxas})
+
+    def run(tag, x):
+        det = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        raw = torch.empty_like(det)
+        b, h, w = x.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        if x.dtype == torch.uint8:
+            err = libs[tag].fast_detect_u8(x.data_ptr(), det.data_ptr(), raw.data_ptr(), b, h, w,
+                                           int(THRESHOLD), MARGIN, stream)
+        else:
+            err = libs[tag].fast_detect_f32(x.data_ptr(), det.data_ptr(), raw.data_ptr(), b, h, w,
+                                            THRESHOLD, MARGIN, stream)
+        if err != 0:
+            raise RuntimeError(f"K1 ({tag}) launch failed with cudaError_t {err}")
+        return det, raw
+
+    routes = []
+    for x in (frames_u8[:16], frames_f32[:16], frames_u8[:1], frames_f32[:1]):
+        label = k1_label(x)
+        ref = fast_detect_plain(x, THRESHOLD, MARGIN)
+        for tag in libs:
+            got = run(tag, x)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                raise AssertionError(f"K1 ({tag}, {label}) disagrees with its plain version")
+        times = {"old": [], "new": []}
+        for tag in ("old", "new", "new", "old"):
+            times[tag].append(device_ms(lambda: run(tag, x), "fast_detect_kernel"))
+        b = k1_bound(x)
+        old_ms, new_ms = statistics.mean(times["old"]), statistics.mean(times["new"])
+        routes.append({
+            "route": label, "bit_equal": True, "old_device_ms": times["old"], "new_device_ms": times["new"],
+            "old_over_new": old_ms / new_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "old_bound_share": b["bound_ms"] / old_ms, "new_bound_share": b["bound_ms"] / new_ms,
+        })
+    emit({"phase": "k1_ab", "old": str(old_src), "routes": routes})
+
+
+def k2_library(image, xy):
+    """The yardstick for K2: ONE advanced-index gather of the float32
+    image's 32x32 windows at precomputed starts (the port never calls it).
+    It writes float32 tiles whatever K2 writes: narrowing to bf16 would be
+    a second call. Returns (fn, its output flattened like K2's)."""
+    import torch
+
+    from mvslam_tpu_torch.ops.cuda_patches import PATCH_PIXELS, PATCH_DIM, _patch_starts
+
+    b, h, w = image.shape
+    xi, yi = _patch_starts(xy, h, w)
+    windows = image.unfold(1, PATCH_DIM, 1).unfold(2, PATCH_DIM, 1)
+    bi = torch.arange(b, device=image.device)[:, None].expand_as(xi)
+
+    def gather():
+        return windows[bi, yi, xi]
+
+    return gather, gather().reshape(b, xy.shape[1], PATCH_PIXELS)
+
+
+def k2_bound(image, xy, out_dtype) -> dict:
+    """Bytes K2 must move: the image pixels its tiles cover (this run's
+    points), the points, and the tiles out."""
+    import torch
+
+    from mvslam_tpu_torch.ops.cuda_patches import PATCH_DIM, PATCH_PIXELS, _patch_starts
+
+    b, h, w = image.shape
+    xi, yi = _patch_starts(xy, h, w)
+    offs = torch.arange(PATCH_DIM, device=image.device)
+    lin = ((yi[..., None, None] + offs[:, None]) * w + xi[..., None, None] + offs[None, :]).reshape(b, -1)
+    covered = torch.zeros((b, h * w), dtype=torch.bool, device=image.device).scatter_(1, lin, True)
+    out_bytes = xy.shape[0] * xy.shape[1] * PATCH_PIXELS * torch.empty((), dtype=out_dtype).element_size()
+    return bound(int(covered.sum()) * image.element_size() + xy.numel() * xy.element_size() + out_bytes)
+
+
+def k2_route(image, xy, out_dtype, label: str) -> dict:
+    """K2 on one input: bit-equal to its plain version and to the gather
+    yardstick, with event, plain, device and yardstick times and the bound."""
+    import torch
+
+    from mvslam_tpu_torch.ops.cuda_patches import extract_patches, extract_patches_plain
+
+    got = extract_patches(image, xy, out_dtype=out_dtype)
+    ref = extract_patches_plain(image, xy, out_dtype=out_dtype)
+    gather, lib_out = k2_library(image, xy)
+    lib_out = lib_out.to(out_dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    if not (torch.equal(got.view(bits), ref.view(bits)) and torch.equal(got.view(bits), lib_out.view(bits))):
+        raise AssertionError(f"K2 extract_patches ({label}) disagrees with its plain version or the gather (max abs err {err})")
+    return with_share({
+        "route": label, "image": list(image.shape), "points": int(xy.shape[1]), "bit_equal": True, "max_abs_err": err,
+        "ms": median_ms(lambda: extract_patches(image, xy, out_dtype=out_dtype)),
+        "plain_ms": median_ms(lambda: extract_patches_plain(image, xy, out_dtype=out_dtype)),
+        "device_ms": device_ms(lambda: extract_patches(image, xy, out_dtype=out_dtype), "extract_patches_kernel"),
+        "library_ms": median_ms(gather), "library_device_ms": device_ms(gather),
+        **k2_bound(image, xy, out_dtype),
+    })
+
+
 def phase_k2(frames_u8):
+    """K2's BRIEF route: the blurred (16, 370, 1226) window, 2048 points,
+    bf16 tiles (float32 tiles checked too)."""
     import torch
 
     from mvslam_tpu_torch.ops.cuda_patches import extract_patches, extract_patches_plain
@@ -175,23 +393,21 @@ def phase_k2(frames_u8):
     xy[:, :256] = torch.round(xy[:, :256]) + 0.5  # exact .5: round half to even
     xy[:, 256:260] = torch.tensor([[-7.0, -3.0], [w + 5.0, h + 9.0], [w - 1.0, 0.0], [0.0, h - 1.0]])
     xy = xy.to(image.device)
-    err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        got = extract_patches(image, xy, out_dtype=dtype)
-        ref = extract_patches_plain(image, xy, out_dtype=dtype)
-        torch.cuda.synchronize()
-        err = max(err, (got.float() - ref.float()).abs().max().item())
-        as_bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        if not torch.equal(got.view(as_bits), ref.view(as_bits)):
-            raise AssertionError(f"K2 extract_patches ({dtype}) disagrees with its plain version (max abs err {err})")
-    ms = median_ms(lambda: extract_patches(image, xy, out_dtype=torch.bfloat16))
-    plain_ms = median_ms(lambda: extract_patches_plain(image, xy, out_dtype=torch.bfloat16))
+    got = extract_patches(image, xy, out_dtype=torch.float32)
+    ref = extract_patches_plain(image, xy, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("K2 extract_patches (float32 tiles) disagrees with its plain version")
+    brief = k2_route(image, xy, torch.bfloat16, "bf16 tiles, BRIEF")
     record = {
         "name": "extract_patches", "route": "cuda", "source": "mvslam_tpu_torch/csrc/extract_patches.cu",
-        "replaces": "mvslam_tpu/ops/pallas_patches.py:85", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "replaces": "mvslam_tpu/ops/pallas_patches.py:85",
+        **{k: brief[k] for k in ("max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                                 "bound_share", "library_ms", "library_device_ms")},
+        "library": "one advanced-index gather of the f32 image's unfold windows at precomputed starts (f32 tiles)",
+        "routes": [brief],
     }
-    emit({"phase": "k2", "image": list(image.shape), "xy": list(xy.shape), "out": "bfloat16 (and float32)",
-          "bit_equal": True, **{k: record[k] for k in ("max_abs_err", "ms", "plain_ms")}})
+    emit({"phase": "k2", **brief})
     return record
 
 
@@ -200,12 +416,11 @@ def phase_k2_lk(frames_u8):
     plain version; the image is LK's blurred pyramid of one bench frame."""
     import torch
 
-    from mvslam_tpu_torch.ops.cuda_patches import extract_patches, extract_patches_plain
     from mvslam_tpu_torch.ops.image import downsample2, gaussian_blur
 
     image = gaussian_blur(frames_u8[:1].to(torch.float32), sigma=1.5, radius=2)
     gen = torch.Generator(device="cpu").manual_seed(1)
-    levels, err = [], 0.0
+    levels = []
     for shape in LK_SHAPES:
         while tuple(image.shape) != shape:
             image = downsample2(image)
@@ -217,20 +432,9 @@ def phase_k2_lk(frames_u8):
         xy[:, :band] = torch.floor(
             torch.rand((b, band, 2), generator=gen) * torch.tensor([w + 60.0, h + 60.0]) - 30.0
         )
-        xy = xy.to(image.device)
-        got = extract_patches(image, xy, out_dtype=torch.float32)
-        ref = extract_patches_plain(image, xy, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        lvl_err = (got - ref).abs().max().item()
-        err = max(err, lvl_err)
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            raise AssertionError(f"K2 extract_patches (float32, {shape}) disagrees with its plain version (max abs err {lvl_err})")
-        levels.append({
-            "shape": list(shape), "points": NUM_FEATURES, "border_band": band, "bit_equal": True,
-            "ms": median_ms(lambda: extract_patches(image, xy, out_dtype=torch.float32)),
-            "plain_ms": median_ms(lambda: extract_patches_plain(image, xy, out_dtype=torch.float32)),
-        })
-    emit({"phase": "k2_lk", "out": "float32", "levels": levels, "max_abs_err": err})
+        levels.append({**k2_route(image, xy.to(image.device), torch.float32, f"f32 tiles, LK {shape}"),
+                       "border_band": band})
+    emit({"phase": "k2_lk", "levels": levels})
     return levels
 
 
@@ -486,7 +690,11 @@ def phase_main(host_frames, build_s: float):
 
 
 def main() -> int:
-    if not (REPO / "mvslam_tpu_torch" / "csrc").is_dir() or not (REPO / "bench.py").is_file():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ab", type=Path, metavar="OLD.cu",
+                        help="also time this earlier fast_detect.cu against the current one")
+    args = parser.parse_args()
+    if not (REPO / "mvslam_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -494,14 +702,18 @@ def main() -> int:
     import torch
 
     import mvslam_tpu_torch  # noqa: F401  (sets the f32 matmul precision)
-    from bench import make_frames
+    from mvslam_tpu_torch.data.bench_frames import make_frames
 
     phase_device()
     build_s = phase_build()
     host_frames = [f.astype("uint8") for f in make_frames(NUM_FRAMES)]
     frames_u8 = torch.from_numpy(np.stack(host_frames[:16])).cuda()
     scene = render_scene_frames()
-    k1 = phase_k1(frames_u8, torch.from_numpy(np.stack(scene[0][1:17])).cuda())
+    frames_f32 = torch.from_numpy(np.stack(scene[0][1:17])).cuda()
+    k1 = phase_k1(frames_u8, frames_f32)
+    if args.ab is not None:
+        phase_k1_ab(args.ab.resolve(), frames_u8, frames_f32)
+    del frames_f32  # the main path's peak memory counts only its own tensors
     k2 = phase_k2(frames_u8)
     k2["lk_levels"] = phase_k2_lk(frames_u8)
     by_path = {"main_path": phase_main(host_frames, build_s)}

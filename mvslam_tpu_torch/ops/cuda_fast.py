@@ -32,8 +32,8 @@ def fast_detect(image: torch.Tensor, threshold: float, margin: int = 19) -> Tupl
     """(B, H, W) uint8 or float image → ``(detections, raw)`` f32 (B, H, W).
 
     CPU tensors take :func:`fast_detect_plain`; CUDA tensors launch the
-    kernel (uint8 with an integral threshold scores in int32, every other
-    input as float32) on the current stream.
+    kernel on the current stream: uint8 with an integral threshold >= 0 on
+    its uint8 route (exact integer scores), every other input as float32.
     """
     if image.device.type == "cpu":
         return fast_detect_plain(image, threshold, margin)
@@ -43,8 +43,7 @@ def fast_detect(image: torch.Tensor, threshold: float, margin: int = 19) -> Tupl
         raise ValueError(f"fast_detect: expected (B, H, W), got {tuple(image.shape)}")
     if margin < 4:
         raise ValueError("fast_detect: margin must be >= 4 (zero taps vs wrap-around)")
-    integral = float(threshold).is_integer()
-    if image.dtype == torch.uint8 and integral:
+    if image.dtype == torch.uint8 and float(threshold).is_integer() and threshold >= 0:
         name = "fast_detect_u8"
         thr = int(threshold)
     else:

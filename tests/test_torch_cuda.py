@@ -28,14 +28,23 @@ def _textured(b, h, w, seed=0):
     rng = np.random.default_rng(seed)
     img = rng.uniform(0, 40, size=(b, h, w)).astype(np.float32)
     for _ in range(b * h * w // 400):
-        i, y, x = rng.integers(0, b), rng.integers(0, h - 8), rng.integers(0, w - 8)
+        i, y, x = rng.integers(0, b), rng.integers(0, max(1, h - 8)), rng.integers(0, max(1, w - 8))
         s = rng.integers(3, 8)
         img[i, y : y + s, x : x + s] = rng.uniform(120, 255)
     return img
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "float32", "float32_frac"])
-@pytest.mark.parametrize("shape", [(2, 45, 77), (3, 96, 160), (1, 370, 1226)])
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (2, 45, 77), (3, 96, 160), (1, 370, 1226),
+        # widths no multiple of 4, 8, 16 or the tile, heights no multiple of
+        # the tile, images smaller than one tile; B = 1 and 16 (the kernel
+        # picks its tile height by the tile count)
+        (16, 370, 1226), (1, 185, 613), (16, 92, 306), (1, 33, 77), (16, 45, 45), (1, 7, 9), (2, 3, 5),
+    ],
+)
 def test_fast_detect_kernel_matches_plain(cuda, dtype, shape):
     img = _textured(*shape)
     if dtype == "uint8":
@@ -52,6 +61,27 @@ def test_fast_detect_kernel_matches_plain(cuda, dtype, shape):
     assert cuda_fast.fast_detect.launches == before + 1
     assert torch.equal(det_k, det_p)
     assert torch.equal(raw_k, raw_p)  # same zero taps everywhere
+
+
+@pytest.mark.parametrize("threshold", [0.0, 20.0, 254.0, 20.5, -3.0])
+@pytest.mark.parametrize("margin", [4, 19])
+def test_fast_detect_kernel_on_plateaus_and_saturation(cuda, threshold, margin):
+    """Constant plateaus (the >= tie rule of the NMS), saturated 0/255
+    pixels, thresholds at both ends, and a non-integral or negative
+    threshold on uint8 (which the wrapper sends down the float32 route)."""
+    rng = np.random.default_rng(3)
+    img = (rng.integers(0, 2, size=(2, 61, 131)) * 255).astype(np.uint8)
+    img[:, 10:40, 20:90] = 200  # a plateau: equal scores along its rim
+    img[:, 18:22, 30:34] = 90
+    img[:, 45:, :] = 0  # a black band meets the saturated noise
+    for x in (torch.from_numpy(img).to(cuda), torch.from_numpy(img.astype(np.float32)).to(cuda)):
+        before = cuda_fast.fast_detect.launches
+        det_k, raw_k = cuda_fast.fast_detect(x, threshold, margin=margin)
+        det_p, raw_p = cuda_fast.fast_detect_plain(x, threshold, margin=margin)
+        torch.cuda.synchronize()
+        assert cuda_fast.fast_detect.launches == before + 1
+        assert torch.equal(raw_k, raw_p) and torch.equal(det_k, det_p)
+        assert threshold != 20.0 or (det_p > 0).sum() > 0
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

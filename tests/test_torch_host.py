@@ -1,8 +1,10 @@
 """The port's host modules against the JAX package's: determinism, hashing,
 persistence, telemetry, keyframe policy, frame ingestion, the scene
-renderer and the trajectory metrics. All are numpy code copied into the
-port, so every comparison is exact."""
+renderer, the benchmark's frames and the trajectory metrics. All are numpy
+code copied into the port, so every comparison is exact."""
 
+import ast
+import importlib.util
 import json
 import subprocess
 import sys
@@ -29,6 +31,7 @@ from mvslam_tpu_torch.core import determinism as tdet
 from mvslam_tpu_torch.core import integrity as tint
 from mvslam_tpu_torch.core import persistence as tpers
 from mvslam_tpu_torch.core import telemetry as ttel
+from mvslam_tpu_torch.data import bench_frames as tbf
 from mvslam_tpu_torch.data import synthetic as tsyn
 from mvslam_tpu_torch.eval import telemetry_intelligence as tti
 from mvslam_tpu_torch.eval import trajectory as ttraj
@@ -228,3 +231,37 @@ def test_host_modules_import_without_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _reference_bench():
+    spec = importlib.util.spec_from_file_location("bench", REPO / "bench.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("num_frames,seed", [(1, 0), (5, 0), (3, 7)])
+def test_bench_frames_equal_reference(num_frames, seed):
+    """The port's copy of ``bench.make_frames`` gives the same frames bit
+    for bit."""
+    bench = _reference_bench()
+    assert (tbf.H, tbf.W) == (bench.H, bench.W)
+    ours, ref = tbf.make_frames(num_frames, seed=seed), bench.make_frames(num_frames, seed=seed)
+    assert len(ours) == len(ref) == num_frames
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype and a.shape == (370, 1226) and np.array_equal(a, b)
+
+
+def test_chip_smoke_imports_nothing_of_the_reference():
+    """Every import in ``chip_smoke.py``, nested ones included, is of the
+    port or of third-party packages: no jax, no ``mvslam_tpu``, no
+    ``bench`` (the machine with the card has none of them)."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert "mvslam_tpu_torch.data.bench_frames" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "mvslam_tpu", "bench")], names
