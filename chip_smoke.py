@@ -51,9 +51,25 @@ and prints no ok line):
              launches inside ``lk_track`` per flow frame, ``lk_track``
              bit-equal with K2 and with its plain version; frames/s and
              LK ms per frame.
+9. slam_ba — the slam phase's run with windowed bundle adjustment on (the
+             default ``KeyframeConfig``, window of 5; relocalization and
+             snapshots off), twice: >= 93 of 96 poses, direction of
+             travel, at least one BA solve accepted, both kernels launched,
+             the two runs' trajectories bit-equal; ``local_ba`` ms per
+             keyframe from the telemetry (median, p90) split into pair gate
+             and solve, accepted/tripped counts, frames/s and ATE beside
+             the slam phase's, peak memory, and the host syncs of one
+             window's solve (``torch.cuda.set_sync_debug_mode``).
+10. pose_graph — ``PoseGraph3D`` of 1,000 SE3 poses (a noisy odometry
+             chain around a path driven ten times, 10 loop edges), solved
+             with ``SolverConfig(max_iterations=15, damping=1e-4)`` by
+             Cholesky and by CG, each twice: finite, final cost below the
+             initial, endpoint error reduced, the two runs bit-equal; ms
+             per solve, peak memory, host syncs of one solve.
 
 Kernel launches are counted per path: the counts are set to 0 just
-before each of main, slam and flow and read just after. The
+before each of main, slam, flow and slam_ba and read just after (the
+pose-graph solver runs no hand kernel). The
 second-to-last line is the per-kernel JSON record (per route: event,
 plain, device and yardstick times, the bound and the share of it reached);
 the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -453,7 +469,7 @@ def render_scene_frames():
     return frames, gt, intrinsics
 
 
-def slam_config(intrinsics, run_id: str, **kw):
+def slam_config(intrinsics, run_id: str, local_ba: bool = False, **kw):
     from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
     from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
     from mvslam_tpu_torch.slam.api import SLAMSystemConfig
@@ -464,7 +480,7 @@ def slam_config(intrinsics, run_id: str, **kw):
         run_id=run_id, output_root=root, seed=0, fx=fx, fy=fy, cx=cx, cy=cy,
         feature=FeaturePipelineConfig(num_features=NUM_FEATURES, max_matches=512),
         pose=RobustPoseEstimatorConfig(num_hypotheses=512),
-        enable_local_ba=False, enable_relocalization=False, persist_map_snapshot=False, **kw,
+        enable_local_ba=local_ba, enable_relocalization=False, persist_map_snapshot=False, **kw,
     )
 
 
@@ -535,7 +551,7 @@ def phase_slam(scene, dev):
         "ATE_RMSE": float(metrics["ATE_RMSE"]), "extent": extent, "ATE_over_extent": float(metrics["ATE_RMSE"]) / extent,
         "good_direction_share": good_dirs, "artifacts": written, "launches": launches,
     })
-    return launches
+    return launches, {"tracked_fps": len(tracked) / elapsed, "ATE_RMSE": float(metrics["ATE_RMSE"])}
 
 
 def phase_flow(scene, dev):
@@ -593,6 +609,227 @@ def phase_flow(scene, dev):
         "lk_points": int(prev.xy.shape[0]), "lk_plain_equal": True, "launches": launches,
     })
     return launches
+
+
+def device_profile(fn, iters: int = 2) -> dict:
+    """Wall ms, device ms (all CUDA activity, ``torch.profiler``) and
+    kernel launches per call of ``fn``, and the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+    dev = sum(e.device_time_total for e in events) / 1e3 / iters
+    return {"wall_ms": wall, "device_ms": dev, "busy_share": dev / wall,
+            "kernels_per_call": sum(e.count for e in events) / iters}
+
+
+def host_syncs(fn):
+    """Run ``fn`` once with CUDA sync debugging on: {"file:line": count} of
+    the calls that synchronised the host with the device."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)
+    )
+    return dict(sorted(where.items()))
+
+
+def phase_slam_ba(scene, dev, slam_summary):
+    """SLAMSystem with window BA over the slam phase's scene, twice; the
+    pair gate and the solve timed per keyframe through wrappers."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.backend import bundle_adjustment as ba
+    from mvslam_tpu_torch.eval.trajectory import compute_additional_metrics
+    from mvslam_tpu_torch.slam.api import SLAMSystem
+
+    frames, gt, intrinsics = scene
+    stats = {"gate_s": [], "solve_s": [], "outcomes": [], "last_solve": None, "last_gate": None}
+    gate_pair, refine_window, run_ba = ba.WindowBundleAdjuster._gate_pair, ba.WindowBundleAdjuster.refine_window, ba.run_bundle_adjustment
+
+    def timed_gate(self, *args):
+        t0 = time.perf_counter()
+        out = gate_pair(self, *args)  # ends in a device->host copy
+        stats["gate_s"].append(time.perf_counter() - t0)
+        stats["last_gate"] = (self, args)
+        return out
+
+    def timed_solve(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = run_ba(*args, **kwargs)  # ends in a device->host copy
+        stats["solve_s"].append(time.perf_counter() - t0)
+        stats["last_solve"] = (args, kwargs)
+        return out
+
+    def counted_refine(self, window, key=None):
+        out = refine_window(self, window, key=key)
+        stats["outcomes"].append("none" if out is None else "tripped" if out.diagnostics.conditioning_tripped else "accepted")
+        return out
+
+    runs = []
+    for run in range(2):
+        for key in ("gate_s", "solve_s", "outcomes"):
+            stats[key] = []
+        system = SLAMSystem(slam_config(intrinsics, f"smoke_slam_ba_{run}", local_ba=True), device=dev)
+        with mock.patch.object(ba.WindowBundleAdjuster, "_gate_pair", timed_gate), mock.patch.object(
+            ba.WindowBundleAdjuster, "refine_window", counted_refine
+        ), mock.patch.object(ba, "run_bundle_adjustment", timed_solve):
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            diags = system.run_sequence(frames, window=WINDOW, windows_per_dispatch=WINDOWS_PER_CALL)
+            elapsed = time.perf_counter() - t0
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs.append({
+            "diags": diags, "poses": np.stack(system.trajectory.poses), "elapsed": elapsed, "launches": launches,
+            "peak": peak, "ba_ms": [1e3 * e.duration_s for e in system.telemetry.events() if e.name == "local_ba"],
+            "gate_ms": [1e3 * v for v in stats["gate_s"]], "solve_ms": [1e3 * v for v in stats["solve_s"]],
+            "outcomes": list(stats["outcomes"]),
+        })
+    first, second = runs
+    if not np.array_equal(first["poses"], second["poses"]):
+        diff = float(np.abs(first["poses"] - second["poses"]).max())
+        raise AssertionError(f"slam_ba: two runs' trajectories differ (max abs {diff})")
+    tracked = first["diags"][1:]
+    poses = sum(d.pose_success for d in tracked)
+    if len(first["diags"]) != SCENE_FRAMES or poses < len(tracked) - 3:
+        raise AssertionError(f"slam_ba posed {poses} of {len(tracked)} frames")
+    est = first["poses"][:, :3, 3]
+    if not np.isfinite(est).all():
+        raise AssertionError("slam_ba: non-finite positions in the trajectory")
+    good_dirs = float((np.diff(est, axis=0) @ np.asarray(SCENE_STEP) > 0).mean())
+    if good_dirs <= 0.7:
+        raise AssertionError(f"slam_ba: direction of travel consistent on only {good_dirs:.2f} of the steps")
+    outcomes = {k: first["outcomes"].count(k) for k in ("accepted", "tripped", "none")}
+    if outcomes["accepted"] < 1:
+        raise AssertionError(f"slam_ba: no BA solve accepted: {outcomes}")
+    args, kwargs = stats["last_solve"]
+    syncs = host_syncs(lambda: run_ba(*args, **kwargs))
+    solve_profile = device_profile(lambda: run_ba(*args, **kwargs))
+    adjuster, gate_args = stats["last_gate"]
+    gate_profile = device_profile(lambda: gate_pair(adjuster, *gate_args))
+    metrics = compute_additional_metrics(est, gt)
+
+    def pct(values, q):
+        return float(np.percentile(values, q)) if values else None
+
+    emit({
+        "phase": "slam_ba", "frames": len(first["diags"]), "poses": poses, "keyframe_window": 5,
+        "local_ba_calls": len(first["ba_ms"]), "outcomes": outcomes,
+        "local_ba_ms": {"median": pct(first["ba_ms"], 50), "p90": pct(first["ba_ms"], 90)},
+        "pair_gate_ms": {"calls": len(first["gate_ms"]), "median": pct(first["gate_ms"], 50), "p90": pct(first["gate_ms"], 90)},
+        "solve_ms": {"calls": len(first["solve_ms"]), "median": pct(first["solve_ms"], 50), "p90": pct(first["solve_ms"], 90)},
+        "last_solve_observations": len(args[2]), "last_solve_points": int(args[1].shape[0]),
+        "tracked_fps": len(tracked) / first["elapsed"], "second_run_fps": len(tracked) / second["elapsed"],
+        "slam_phase_fps": slam_summary["tracked_fps"], "ATE_RMSE": float(metrics["ATE_RMSE"]),
+        "slam_phase_ATE_RMSE": slam_summary["ATE_RMSE"], "good_direction_share": good_dirs,
+        "peak_mem_bytes": int(first["peak"]), "bit_equal_runs": True, "host_syncs_one_solve": syncs,
+        "profile_one_solve": solve_profile, "profile_one_pair_gate": gate_profile,
+        "launches": first["launches"],
+    })
+    return first["launches"]
+
+
+def pose_graph_scene(num_poses=1000, laps=10, seed=0):
+    """Ground-truth poses of a path driven ``laps`` times around a circle
+    (a slight climb per lap), the chain composed from noisy odometry, and
+    ``laps`` loop edges: each later lap's start, and the last pose, seen
+    again from the first pose (the place where the path began)."""
+    import numpy as np
+
+    from mvslam_tpu_torch.geometry import lie_np
+
+    rng = np.random.default_rng(seed)
+    per_lap = num_poses // laps
+    truth = []
+    for i in range(num_poses):
+        a = 2 * np.pi * i / per_lap
+        T = np.eye(4)
+        T[:3, :3] = lie_np.so3_exp(np.asarray([0.0, 0.0, a + np.pi / 2]))
+        T[:3, 3] = [20.0 * np.cos(a), 20.0 * np.sin(a), 0.05 * i / per_lap]
+        truth.append(T)
+    chain = [truth[0]]
+    for a, b in zip(truth[:-1], truth[1:]):
+        delta = lie_np.se3_matrix_to_params(np.linalg.inv(a) @ b)
+        delta = delta + np.concatenate([rng.normal(scale=0.02, size=3), rng.normal(scale=0.002, size=3)])
+        chain.append(chain[-1] @ lie_np.se3_params_to_matrix(delta))
+    ends = [k * per_lap for k in range(1, laps)] + [num_poses - 1]
+    loop_edges = [(0, j, np.linalg.inv(truth[0]) @ truth[j]) for j in ends]
+    return np.stack(truth), np.stack(chain), loop_edges
+
+
+def phase_pose_graph(dev):
+    """The 1,000-pose SE3 graph by Cholesky and by CG, each twice."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.backend.pose_graph import PoseGraph3D
+    from mvslam_tpu_torch.backend.solvers import SolverConfig, solve_problem
+
+    truth, chain, loop_edges = pose_graph_scene()
+
+    def build():
+        graph = PoseGraph3D.from_pose_matrices(chain, device=dev)
+        for i, j, T in loop_edges:
+            graph.add_loop_matrix(i, j, T, weight=5.0)
+        return graph
+
+    def endpoint_error(graph):
+        return float(np.linalg.norm(graph.poses()[-1][:3, 3] - truth[-1][:3, 3]))
+
+    before = endpoint_error(build())
+    methods = {}
+    for method in ("cholesky", "cg"):
+        config = SolverConfig(max_iterations=15, damping=1e-4, method=method)
+        results, times, peaks = [], [], []
+        for _ in range(2):
+            graph = build()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            result = graph.optimize(config)  # ends in a device->host copy
+            times.append(1e3 * (time.perf_counter() - t0))
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            results.append((result, endpoint_error(graph)))
+        (r1, after), (r2, _) = results
+        if not np.array_equal(r1.x, r2.x):
+            raise AssertionError(f"pose_graph {method}: two runs differ (max abs {float(np.abs(r1.x - r2.x).max())})")
+        if not (np.isfinite(r1.x).all() and r1.final_cost < r1.initial_cost and after < before):
+            raise AssertionError(f"pose_graph {method}: cost {r1.initial_cost} -> {r1.final_cost}, "
+                                 f"endpoint error {before} -> {after}")
+        problem = build()._build_graph().build_problem(device=dev)
+        methods[method] = {
+            "ms_per_solve": times, "iterations": r1.iterations, "converged": r1.converged,
+            "initial_cost": r1.initial_cost, "final_cost": r1.final_cost, "endpoint_error_after": after,
+            "peak_mem_bytes": int(max(peaks)), "bit_equal_runs": True,
+            "host_syncs_one_solve": host_syncs(lambda: solve_problem(problem, config)),
+            "profile_one_solve": device_profile(lambda: solve_problem(problem, config), iters=1),
+        }
+    emit({"phase": "pose_graph", "poses": len(truth), "edges": len(chain) - 1 + len(loop_edges),
+          "loops": len(loop_edges), "endpoint_error_before": before, "methods": methods})
 
 
 def phase_main(host_frames, build_s: float):
@@ -717,8 +954,10 @@ def main() -> int:
     k2 = phase_k2(frames_u8)
     k2["lk_levels"] = phase_k2_lk(frames_u8)
     by_path = {"main_path": phase_main(host_frames, build_s)}
-    by_path["slam"] = phase_slam(scene, torch.device("cuda", 0))
+    by_path["slam"], slam_summary = phase_slam(scene, torch.device("cuda", 0))
     by_path["flow"] = phase_flow(scene, torch.device("cuda", 0))
+    by_path["slam_ba"] = phase_slam_ba(scene, torch.device("cuda", 0), slam_summary)
+    phase_pose_graph(torch.device("cuda", 0))
     if any(name.split(".")[0] in ("jax", "mvslam_tpu") for name in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     for record in (k1, k2):

@@ -8,8 +8,11 @@ find, and is tested against it on identical numpy inputs. It imports
 It covers the ``SLAMSystem`` entry point (``slam.api``), the tracking step
 (``slam.tracking``: FAST-9 detection, steered BRIEF, Hamming matching,
 dual-model RANSAC and the pose estimator), flow-first tracking with
-pyramidal Lucas-Kanade (``ops.lk``), and the numpy host modules these use
-(``core``, ``backend.keyframes``, ``runtime.frame_stream``, ``eval``,
+pyramidal Lucas-Kanade (``ops.lk``), the back end (``geometry.lie``,
+``backend``: factor graphs, Gauss-Newton solvers, pose graphs, the
+optimization supervisor and window bundle adjustment, which ``SLAMSystem``
+runs by default), and the numpy host modules these use (``core``,
+``backend.keyframes``, ``runtime.frame_stream``, ``eval``,
 ``data.synthetic``). The two Pallas kernels of the reference run as
 hand-written CUDA kernels (``csrc/``) on CUDA tensors; CPU tensors take
 each kernel's plain PyTorch version.

@@ -1,1 +1,1 @@
-"""Closed-form small-matrix linear algebra and epipolar geometry (port of ``mvslam_tpu.geometry``)."""
+"""Closed-form small-matrix linear algebra, epipolar geometry, projection, Lie maps and alignment (port of ``mvslam_tpu.geometry``)."""

@@ -1,6 +1,6 @@
 """Epipolar geometry: essential/homography solvers and decompositions.
 
-Port of the tracking step's part of ``mvslam_tpu/geometry/epipolar.py``.
+Port of ``mvslam_tpu/geometry/epipolar.py``.
 Everything is batched over leading axes (hypotheses, frames) and works in
 normalised camera coordinates. One reduction form throughout: the
 reference's ``pinned`` order-pinned variants exist only for bit-equality
@@ -84,6 +84,25 @@ def essential_from_vec(e: torch.Tensor, exact_rank2: bool) -> torch.Tensor:
     C = A / s2[..., None, None] + v3[..., :, None] * v3[..., None, :]
     C = C + 1e-6 * torch.eye(3, dtype=E.dtype, device=E.device)
     return (E2 / torch.sqrt(s2)[..., None, None]) @ _invsqrt3x3_psd(C)
+
+
+def eight_point_essential(
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Essential matrix from ≥ 8 normalised correspondences (..., N, 2).
+
+    Optional ``weights`` (..., N) scale each constraint row (an inlier
+    mask refits on inliers without dynamic shapes); a refit takes the
+    rescued null-space solve and the full σ = (1, 1, 0) spectrum, a
+    hypothesis batch neither.
+    """
+    refit = weights is not None
+    e = _smallest_singular_vector(
+        essential_rows(pts1, pts2, weights),
+        rescue=refit,
+        iterations=REFIT_EIGVEC_ITERS if refit else HYPOTHESIS_EIGVEC_ITERS,
+    )
+    return essential_from_vec(e, exact_rank2=refit)
 
 
 def sampson_error(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
@@ -217,6 +236,20 @@ def homography_from_vec(h: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor) -> 
     H = inv3x3(T2) @ Hn @ T1
     scale = H[..., 2:3, 2:3]
     return H / torch.where(scale.abs() < 1e-12, torch.full_like(scale, 1e-12), scale)
+
+
+def dlt_homography(
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Hartley-normalised DLT homography from ≥ 4 correspondences
+    (..., N, 2), scaled to H[2, 2] = 1; ``weights`` as in
+    :func:`eight_point_essential`."""
+    A, T1, T2 = homography_rows(pts1, pts2, weights)
+    refit = weights is not None
+    h = _smallest_singular_vector(
+        A, rescue=refit, iterations=REFIT_EIGVEC_ITERS if refit else HYPOTHESIS_EIGVEC_ITERS
+    )
+    return homography_from_vec(h, T1, T2)
 
 
 def symmetric_transfer_error(H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:

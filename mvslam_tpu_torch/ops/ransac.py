@@ -1,6 +1,8 @@
-"""Hypothesis-parallel dual-model RANSAC (essential + homography).
+"""Hypothesis-parallel RANSAC: single-model (essential or homography) and
+dual-model (both in one solver chain).
 
-Port of the tracking step's part of ``mvslam_tpu/ops/ransac.py``: K
+Port of ``mvslam_tpu/ops/ransac.py`` (without the mesh's hypothesis
+sharding, ROADMAP step 15): K
 minimal samples are drawn with a masked Gumbel-top-k from threefry bits
 (``core.prng``, bit-identical to ``jax.random``), all hypotheses of both
 models are solved as one batched null-space problem, all K×N residuals
@@ -21,6 +23,8 @@ from mvslam_tpu_torch.geometry.epipolar import (
     REFIT_EIGVEC_ITERS,
     _smallest_singular_vector,
     _take,
+    dlt_homography,
+    eight_point_essential,
     essential_from_vec,
     essential_rows,
     homography_from_vec,
@@ -79,6 +83,44 @@ def _gather_points(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _as_threshold_sq(threshold, like: torch.Tensor) -> torch.Tensor:
     t = torch.as_tensor(threshold, dtype=like.dtype, device=like.device)
     return t * t
+
+
+def _ransac(key, pts1, pts2, mask, config: RansacConfig, solver, scorer, sample_size: int, threshold=None) -> RansacResult:
+    """Single-model RANSAC: K hypotheses from minimal samples, scored at
+    once, the best refit on its inliers (static rounds). Batched over
+    leading axes like :func:`ransac_dual_model`."""
+    thr2 = _as_threshold_sq(config.threshold if threshold is None else threshold, pts1)
+    num_valid = mask.sum(dim=-1)
+    idx = _sample_indices(key, mask, config.num_hypotheses, sample_size)  # (..., K, S)
+    models = solver(_gather_points(pts1, idx), _gather_points(pts2, idx), None)  # (..., K, 3, 3)
+    inl = (scorer(models, pts1[..., None, :, :], pts2[..., None, :, :]) < thr2[..., None, None]) & mask[..., None, :]
+    best = torch.argmax(inl.sum(dim=-1), dim=-1)  # first maximum, like jnp.argmax
+    model, inliers = _take(models, best, -3), _take(inl, best, -2)
+    for _ in range(config.refit_rounds):
+        w = inliers.to(pts1.dtype)
+        enough = w.sum(dim=-1) >= sample_size  # a refit needs a full sample's worth
+        model = torch.where(enough[..., None, None], solver(pts1, pts2, w), model)
+        inliers = (scorer(model, pts1, pts2) < thr2[..., None]) & mask
+    count = inliers.sum(dim=-1)
+    ratio = count / num_valid.clamp_min(1)
+    success = (count >= config.min_inliers) & (num_valid >= sample_size)
+    return RansacResult(model, inliers, count.to(torch.int32), ratio.to(torch.float32), success)
+
+
+def ransac_essential(
+    key, pts1, pts2, mask, config: RansacConfig = RansacConfig(threshold=2e-3), threshold=None
+) -> RansacResult:
+    """Essential-matrix RANSAC over normalised correspondences, Sampson
+    scored; ``threshold`` (a scalar or a (...) tensor) overrides the
+    config's."""
+    return _ransac(key, pts1, pts2, mask, config, eight_point_essential, sampson_error, 8, threshold)
+
+
+def ransac_homography(
+    key, pts1, pts2, mask, config: RansacConfig = RansacConfig(threshold=3.0), threshold=None
+) -> RansacResult:
+    """Homography RANSAC scored by symmetric transfer error."""
+    return _ransac(key, pts1, pts2, mask, config, dlt_homography, symmetric_transfer_error, 4, threshold)
 
 
 def ransac_dual_model(

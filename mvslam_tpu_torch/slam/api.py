@@ -9,10 +9,11 @@ every artifact carrying the ``{seed, config_hash}`` determinism payload.
 
 The device is explicit: ``SLAMSystem(config, device=...)`` runs every
 tensor op on that device (kernels K1/K2 on a CUDA device), and nothing
-moves to the CPU on its own. Windowed BA (ROADMAP step 11), relocalization
-and map snapshots (step 12) are not ported yet: a configuration that
-enables them is refused with ``NotImplementedError``, never run without
-the stage.
+moves to the CPU on its own; windowed bundle adjustment over each keyframe
+window (``enable_local_ba``, on by default) runs there too.
+Relocalization and map snapshots (ROADMAP step 12) are not ported yet: a
+configuration that enables them is refused with ``NotImplementedError``,
+never run without the stage.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mvslam_tpu_torch.backend.keyframes import KeyframeConfig, KeyframeManager
+from mvslam_tpu_torch.backend.bundle_adjustment import WindowBundleAdjuster
+from mvslam_tpu_torch.backend.keyframes import Keyframe, KeyframeConfig, KeyframeManager
 from mvslam_tpu_torch.core import prng
 from mvslam_tpu_torch.core.determinism import DeterminismRegistry
 from mvslam_tpu_torch.core.experiments import create_run_artifacts
@@ -64,7 +66,6 @@ logger = logging.getLogger(__name__)
 # Stages of the JAX package's SLAMSystem that the port does not have yet,
 # by the config flag that enables each: the ROADMAP step that brings it.
 _NOT_PORTED = {
-    "enable_local_ba": "windowed bundle adjustment comes with ROADMAP step 11",
     "enable_relocalization": "relocalization comes with ROADMAP step 12",
     "persist_map_snapshot": "map snapshots come with ROADMAP step 12",
 }
@@ -73,10 +74,10 @@ _NOT_PORTED = {
 @dataclass(frozen=True)
 class SLAMSystemConfig:
     """Same fields and defaults as the reference's config. The port refuses
-    ``enable_local_ba``, ``enable_relocalization`` and
-    ``persist_map_snapshot`` (see ``_NOT_PORTED``), so it runs with all
-    three set to False; ``program_cache_budget_gb`` is kept for parity and
-    has no effect (PyTorch keeps no compiled programs to evict)."""
+    ``enable_relocalization`` and ``persist_map_snapshot`` (see
+    ``_NOT_PORTED``), so it runs with both set to False;
+    ``program_cache_budget_gb`` is kept for parity and has no effect
+    (PyTorch keeps no compiled programs to evict)."""
 
     run_id: str = "slam_run"
     output_root: Path = Path("runs")
@@ -97,6 +98,7 @@ class SLAMSystemConfig:
     # Relocalization
     enable_relocalization: bool = True
     relocalization_min_inliers: int = 20
+    # Local BA over the keyframe window, on by default as in the reference.
     enable_local_ba: bool = True
     persist_map_snapshot: bool = True
     program_cache_budget_gb: float = 6.0
@@ -158,7 +160,7 @@ class SLAMSystem:
         if refused:
             raise NotImplementedError(
                 "SLAMSystemConfig enables stages the port does not have yet: " + "; ".join(refused)
-                + ". Set enable_local_ba, enable_relocalization and persist_map_snapshot to False."
+                + ". Set enable_relocalization and persist_map_snapshot to False."
             )
         self.device = torch.device(device)
         self.registry = DeterminismRegistry(seed=self.config.seed, config_hash=self.config.config_hash)
@@ -172,7 +174,7 @@ class SLAMSystem:
         self.correlations = TelemetryCorrelationRegistry(
             self.config.seed, self.config.config_hash, self.config.run_id
         )
-        self.keyframes = KeyframeManager(self.config.keyframe)
+        self.keyframes = KeyframeManager(self.config.keyframe, on_window=self._on_keyframe_window)
         self.trajectory = TrajectoryAccumulator()
         self.diagnostics: List[FrameDiagnostics] = []
 
@@ -186,6 +188,9 @@ class SLAMSystem:
         self._failure_count = 0
         self._reloc_count = 0
         self._injected_losses: set = set()
+        self._local_ba = (
+            WindowBundleAdjuster(self.K, device=self.device) if self.config.enable_local_ba else None
+        )
 
     # ------------------------------------------------------------------
     # Frame processing
@@ -369,6 +374,30 @@ class SLAMSystem:
                 )
                 diag.is_keyframe = kf is not None
         self.diagnostics.append(diag)
+
+    def _on_keyframe_window(self, window: List[Keyframe]) -> None:
+        if self._local_ba is None or len(window) < 2:
+            return
+        old_poses = [kf.pose.copy() for kf in window]
+        with timed_event(self.telemetry, "local_ba", metadata={"window": len(window)}):
+            result = self._local_ba.refine_window(window, key=self.registry.key_for("local_ba", self.device))
+        if result is None or result.diagnostics.conditioning_tripped:
+            return
+        # Spread each keyframe's rigid correction over its span of recorded
+        # frames and re-anchor the live pose at the refined head: otherwise
+        # BA would improve the keyframe poses and never the trajectory.
+        fid_to_idx = {f: i for i, f in enumerate(self.trajectory.frame_ids)}
+        n_traj = len(self.trajectory.poses)
+        for k, kf in enumerate(window):
+            start = fid_to_idx.get(kf.frame_id)
+            if start is None:
+                continue
+            delta = kf.pose @ np.linalg.inv(old_poses[k])
+            end = fid_to_idx.get(window[k + 1].frame_id, n_traj) if k + 1 < len(window) else n_traj
+            for idx in range(start, end):
+                self.trajectory.poses[idx] = delta @ self.trajectory.poses[idx]
+        if n_traj:
+            self._pose = self.trajectory.poses[-1].copy()
 
     # ------------------------------------------------------------------
     # Runners

@@ -1,5 +1,7 @@
 """CUDA kernels K1 and K2 against their plain PyTorch versions, on the card,
-alone and inside LK and ``SLAMSystem``.
+alone and inside LK and ``SLAMSystem``; the back end's BA and Gauss-Newton
+cores on the card against the same calls on the CPU, and bit-equal between
+two card runs.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``); without a
 card they skip. This file imports no JAX, so it also runs on a machine
@@ -159,3 +161,112 @@ def test_slam_system_on_the_card_launches_both_kernels(cuda, tmp_path):
     assert sum(d.pose_success for d in diags) >= 5
     assert cuda_fast.fast_detect.launches - k1 == 6
     assert cuda_patches.extract_patches.launches - k2 >= 6 + 5 * 30
+
+
+def _ba_problem(W=5, P=120, seed=0, visible=1.0, pose_noise=0.02):
+    """A window of W poses 0.5 apart observing P points (0.5 px noise), the
+    later poses and the points perturbed: the padded arrays ``_ba_core``
+    takes, on the host."""
+    from mvslam_tpu_torch.backend import bundle_adjustment as ba
+    from mvslam_tpu_torch.geometry import lie_np
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]])
+    pts = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(6, 14, P)], axis=1)
+    poses = np.stack([lie_np.se3_matrix(lie_np.so3_exp(np.asarray([0.0, 0.02 * w, 0.0])), np.asarray([0.5 * w, 0, 0]))
+                      for w in range(W)])
+    obs = []
+    for w in range(W):
+        T_cw = np.linalg.inv(poses[w])
+        cam = pts @ T_cw[:3, :3].T + T_cw[:3, 3]
+        uv = cam[:, :2] / cam[:, 2:] * 400.0 + [160, 120] + rng.normal(scale=0.5, size=(P, 2))
+        obs += [ba.Observation(w, p, uv[p]) for p in range(P) if rng.random() < visible]
+    poses[2:, :3, 3] += rng.normal(scale=pose_noise, size=(W - 2, 3))
+    return poses, pts + rng.normal(scale=0.05, size=pts.shape), obs, K
+
+
+def test_ba_core_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda):
+    """``run_bundle_adjustment`` on CUDA tensors against the same call on
+    CPU tensors (poses 1e-4, points 2e-3, costs 1e-4 relative: the CPU
+    parity tests' tolerances; on this problem the CPU's float32 poses are
+    3.5e-6 from a float64 run, where a window of 300 partly seen points
+    leaves float32 LM 2e-2 from float64 after 10 iterations and no
+    tolerance would mean much), and bit-equal between two card runs (the
+    assemblies are segment sums over fixed tables, no atomics)."""
+    from mvslam_tpu_torch.backend import bundle_adjustment as ba
+
+    poses, pts, obs, K = _ba_problem()
+    cpu = ba.run_bundle_adjustment(poses, pts, obs, K, device="cpu")
+    gpu = [ba.run_bundle_adjustment(poses, pts, obs, K, device=cuda) for _ in range(2)]
+    assert not gpu[0].diagnostics.conditioning_tripped and not cpu.diagnostics.conditioning_tripped
+    np.testing.assert_allclose(gpu[0].poses, cpu.poses, atol=1e-4)
+    np.testing.assert_allclose(gpu[0].points, cpu.points, atol=2e-3)
+    assert gpu[0].diagnostics.final_cost == pytest.approx(cpu.diagnostics.final_cost, rel=1e-4)
+    assert np.array_equal(gpu[0].poses, gpu[1].poses) and np.array_equal(gpu[0].points, gpu[1].points)
+    assert gpu[0].diagnostics == gpu[1].diagnostics
+
+
+def _pose_graph(model, n=60, seed=0):
+    from mvslam_tpu_torch.backend import pose_graph as pg
+
+    rng = np.random.default_rng(seed)
+    cls, step = {"se2": (pg.PoseGraph, [1.0, 0.0, 0.2]), "se3": (pg.PoseGraph3D, [1.0, 0, 0, 0, 0, 0.1]),
+                 "sim3": (pg.PoseGraphSim3D, [1.0, 0, 0, 0, 0, 0.1, 0.01])}[model]
+    graph = cls(device="cpu")
+    for _ in range(n):
+        graph.add_pose(np.asarray(step) + rng.normal(scale=0.02, size=len(step)))
+    rel = np.zeros(len(step))
+    for _ in range(10):  # the noise-free motion over 10 steps
+        rel = pg._HOST_COMPOSE[model](rel, np.asarray(step, float))
+    for i in range(0, n - 10, 10):
+        graph.add_loop(i, i + 10, rel, weight=2.0)
+    return graph._build_graph()
+
+
+@pytest.mark.parametrize("method", ["cholesky", "cg"])
+@pytest.mark.parametrize("model", ["se2", "se3", "sim3"])
+def test_gauss_newton_core_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda, model, method):
+    """The packed GN core on the card against the same call on the CPU,
+    within twice the CPU's float32 distance from a float64 run plus 1e-5
+    (a 60-pose chain's dense Cholesky in float32 lands up to 2e-3 from
+    float64), and bit-equal between two card runs."""
+    from mvslam_tpu_torch.backend.solvers import SolverConfig, gauss_newton_core_packed
+
+    fg = _pose_graph(model)
+    config = SolverConfig(max_iterations=15, damping=1e-4, method=method)
+
+    def run(device, dtype=torch.float32):
+        p = fg.build_problem(dtype=dtype, device=device)
+        return gauss_newton_core_packed(p.x0, p.edges, p.measurements, p.weights, p.anchor_mask, p.model_name,
+                                        config).cpu().numpy()
+
+    cpu, cpu64, gpu1, gpu2 = run("cpu"), run("cpu", torch.float64), run(cuda), run(cuda)
+    n, d = fg.build_problem(device="cpu").x0.shape
+    x = slice(1, 1 + n * d)
+    assert np.isfinite(gpu1).all()
+    np.testing.assert_allclose(gpu1[x], cpu[x], atol=1e-5 + 2 * np.abs(cpu[x] - cpu64[x]).max())
+    assert gpu1[0] == pytest.approx(cpu[0], rel=1e-4, abs=1e-7)
+    assert np.array_equal(gpu1, gpu2)
+
+
+def test_slam_system_with_local_ba_on_the_card(cuda, tmp_path):
+    """``SLAMSystem`` at its default BA setting on the card: local BA runs
+    on every keyframe window and at least one refinement is accepted."""
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    frames, _, (fx, fy, cx, cy), _ = render_scene(num_frames=8, h=240, w=320, seed=1)
+    cfg = SLAMSystemConfig(
+        output_root=tmp_path, fx=fx, fy=fy, cx=cx, cy=cy,
+        feature=FeaturePipelineConfig(num_features=256, max_matches=128),
+        pose=RobustPoseEstimatorConfig(num_hypotheses=128),
+        enable_relocalization=False, persist_map_snapshot=False,
+    )
+    system = SLAMSystem(cfg, device=cuda)
+    diags = system.run_sequence(frames, window=4, windows_per_dispatch=2)
+    assert sum(d.pose_success for d in diags) >= 7
+    events = [e for e in system.telemetry.events() if e.name == "local_ba"]
+    assert len(events) == sum(d.is_keyframe for d in diags) - 1 >= 5
+    assert system._local_ba.last_diagnostics is not None

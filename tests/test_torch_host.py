@@ -225,7 +225,10 @@ def test_frame_stream_needs_a_reader():
 def test_host_modules_import_without_jax():
     code = (
         "import sys; import mvslam_tpu_torch.slam.api, mvslam_tpu_torch.eval.trajectory, "
-        "mvslam_tpu_torch.data.synthetic, mvslam_tpu_torch.runtime.frame_stream; "
+        "mvslam_tpu_torch.data.synthetic, mvslam_tpu_torch.runtime.frame_stream, "
+        "mvslam_tpu_torch.backend.bundle_adjustment, mvslam_tpu_torch.backend.pose_graph, "
+        "mvslam_tpu_torch.backend.optimization_control, mvslam_tpu_torch.geometry.lie_np, "
+        "mvslam_tpu_torch.geometry.alignment; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mvslam_tpu.'))]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
