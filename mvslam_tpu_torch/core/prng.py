@@ -93,3 +93,31 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) ->
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(k: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32: ``-log(-log(u))`` with ``u`` the
+    uniform draw on [tiny, 1). The uniform bits equal JAX's; ``log`` may
+    differ from XLA's in the last place, so rank the result with a stable
+    top-k when the selected index set has to equal the reference's."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(k, shape, minval=tiny, maxval=1.0)))
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` for int32 bounds: the key is split, each half
+    draws one 32-bit word per element, and the two words are combined
+    modulo the span in wrapping uint32 arithmetic (so the multiplier
+    ``2**32 % span`` comes out 0 for spans above 2**16, as in JAX).
+    Returns int64 values in [minval, maxval)."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-(2**31) <= minval and maxval <= 2**31 - 1):
+        raise ValueError("randint is ported for bounds within int32")
+    keys = split(k, 2)
+    higher = random_bits32(keys[..., 0, :], shape)
+    lower = random_bits32(keys[..., 1, :], shape)
+    span = maxval - minval if maxval > minval else 1
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & _MASK) % span
+    offset = (((higher % span) * multiplier) & _MASK) + (lower % span)
+    return minval + (offset & _MASK) % span

@@ -8,15 +8,41 @@ points, rendered through the induced homography per view. Used by the
 accuracy tests (``tests/test_accuracy.py``) and the full-pipeline
 benchmark (``benchmarks/benchmark_offline_pipeline.py``).
 
-Copied verbatim from ``mvslam_tpu/data/synthetic.py`` (numpy only): the
-port renders the same frames without importing the JAX package.
+``render_scene`` is copied verbatim from ``mvslam_tpu/data/synthetic.py``
+(numpy only): the port renders the same frames without importing the JAX
+package. ``write_kitti_sequence`` writes its PNG files with numpy and
+``zlib`` (:func:`write_png_gray`) where the reference uses Pillow.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
+from pathlib import Path
+
 import numpy as np
 
-__all__ = ["render_scene", "write_kitti_sequence"]
+__all__ = ["render_scene", "write_kitti_sequence", "write_png_gray"]
+
+
+def write_png_gray(path, image) -> None:
+    """Write an (H, W) uint8 array as an 8-bit greyscale PNG (filter type 0
+    on every scanline, so a reader undoes nothing per pixel)."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    if image.ndim != 2:
+        raise ValueError("write_png_gray takes an (H, W) array")
+    h, w = image.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), image], axis=1).tobytes()
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", zlib.crc32(ctype + body))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 1))
+        + chunk(b"IEND", b"")
+    )
 
 
 def render_scene(num_frames=10, h=240, w=320, seed=0, traj_fn=None, planar=False,
@@ -148,19 +174,13 @@ def write_kitti_sequence(root, frames, gt_positions, intrinsics, sequence="00"):
     Returns ``(dataset_root, gt_path)`` for the offline entry point /
     evaluation harness.
     """
-    from pathlib import Path
-
-    from PIL import Image
-
     root = Path(root)
     fx, fy, cx, cy = intrinsics
     seq_dir = root / "sequences" / sequence
     img_dir = seq_dir / "image_0"
     img_dir.mkdir(parents=True, exist_ok=True)
     for i, f in enumerate(frames):
-        Image.fromarray(np.asarray(f).astype(np.uint8), mode="L").save(
-            img_dir / f"{i:06d}.png"
-        )
+        write_png_gray(img_dir / f"{i:06d}.png", np.asarray(f).astype(np.uint8))
     (seq_dir / "times.txt").write_text(
         "\n".join(f"{0.1 * i:.6f}" for i in range(len(frames)))
     )

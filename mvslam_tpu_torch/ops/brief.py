@@ -155,6 +155,13 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*packed.shape[:-1], 256).to(torch.uint8)
 
 
+def descriptor_words(descriptors, device=None) -> torch.Tensor:
+    """Host descriptors ((..., 8) uint32, as keyframes and snapshots hold
+    them) as the int32 words the device ops take, on ``device``."""
+    words = np.ascontiguousarray(np.asarray(descriptors, dtype=np.uint32)).view(np.int32)
+    return torch.from_numpy(words).to(device)
+
+
 def describe_keypoints(
     image: torch.Tensor,
     xy: torch.Tensor,

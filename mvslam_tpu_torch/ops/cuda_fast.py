@@ -13,6 +13,7 @@ circularly. Both agree under the border mask when ``margin >= 4``.
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
@@ -64,7 +65,9 @@ def fast_detect(image: torch.Tensor, threshold: float, margin: int = 19) -> Tupl
         )
     cuda_build.check(err, name)
     fast_detect.launches += 1
+    fast_detect.launch_shapes[(str(image.dtype), b, h, w)] += 1
     return det, raw
 
 
 fast_detect.launches = 0  # kernel launches (plain-version calls do not count)
+fast_detect.launch_shapes = collections.Counter()  # the same launches by (dtype, B, H, W)

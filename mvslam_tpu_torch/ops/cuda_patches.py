@@ -10,6 +10,8 @@ against which the kernel is checked on the card.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from mvslam_tpu_torch.core import cuda_build
@@ -76,7 +78,9 @@ def extract_patches(image: torch.Tensor, xy: torch.Tensor, out_dtype=None) -> to
         err = getattr(lib, name)(image.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n, stream)
     cuda_build.check(err, name)
     extract_patches.launches += 1
+    extract_patches.launch_shapes[(str(out_dtype), b, h, w, n)] += 1
     return out
 
 
 extract_patches.launches = 0  # kernel launches (plain-version calls do not count)
+extract_patches.launch_shapes = collections.Counter()  # the same launches by (output dtype, B, H, W, N)

@@ -9,15 +9,19 @@ This is host-side I/O; the windowed device-batch engine
 (``slam.api.SLAMSystem._run_windowed``) consumes it.
 
 Port of ``mvslam_tpu/runtime/frame_stream.py``. The JAX package's default
-reader decodes with its C++ PNG/PGM decoder, which the port does not build
-yet (ROADMAP step 14): until then :class:`FrameStream` needs an explicit
-``read_fn`` and raises ``NotImplementedError`` without one.
+reader decodes with its C++ library, then cv2, then Pillow. The port's
+default reader needs none of them: :func:`decode_png` and
+:func:`decode_pnm` read 8-bit grey, RGB and RGBA non-interlaced PNG and
+binary PGM/PPM with numpy and ``zlib``, colour to grey by BT.601 in fixed
+point as the native decoder does.
 """
 
 from __future__ import annotations
 
+import struct
 import threading
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass
 from pathlib import Path
@@ -96,12 +100,145 @@ class BoundedRingBuffer:
             return len(self._items)
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # grey, RGB, RGBA
+_PNG_COLOR_NAMES = {3: "palette", 4: "grey+alpha"}
+
+
+def _luma_bt601(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3+) uint8 → (H, W) uint8, BT.601 weights in 15-bit fixed
+    point (0.299, 0.587, 0.114), rounded to nearest."""
+    c = rgb.astype(np.uint32)
+    return ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + 16384) >> 15).astype(np.uint8)
+
+
+def _unfilter_png(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG scanline filters; returns (height, stride) uint8."""
+    data = np.frombuffer(raw, dtype=np.uint8)
+    if data.size != height * (stride + 1):
+        raise ValueError("PNG image data has the wrong length")
+    data = data.reshape(height, stride + 1)
+    out = np.empty((height, stride), dtype=np.uint8)
+    prev = np.zeros(stride, dtype=np.uint8)
+    for y in range(height):
+        ftype = int(data[y, 0])
+        line = data[y, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum per channel, modulo 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            cur = line + prev
+        elif ftype in (3, 4):  # Average, Paeth: each byte needs the one to its left
+            row = bytearray(line.tobytes())
+            up = prev.tobytes()
+            if ftype == 3:
+                for i in range(stride):
+                    left = row[i - bpp] if i >= bpp else 0
+                    row[i] = (row[i] + ((left + up[i]) >> 1)) & 0xFF
+            else:
+                for i in range(stride):
+                    a = row[i - bpp] if i >= bpp else 0
+                    b = up[i]
+                    c = up[i - bpp] if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                    row[i] = (row[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(row), dtype=np.uint8)
+        else:
+            raise ValueError(f"PNG filter type {ftype} is not defined")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """Decode an 8-bit grey, RGB or RGBA non-interlaced PNG to (H, W) uint8
+    grey (alpha dropped). Any other PNG raises ``ValueError`` naming it."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos = 8
+    header = None
+    idat = []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length  # length, type, body, CRC
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    width, height, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
+        kind = _PNG_COLOR_NAMES.get(color, f"colour type {color}")
+        raise ValueError(
+            f"unsupported PNG format: {depth}-bit {kind}"
+            f"{', interlaced' if interlace else ''} (8-bit grey, RGB and RGBA, non-interlaced, are read)"
+        )
+    channels = _PNG_CHANNELS[color]
+    rows = _unfilter_png(zlib.decompress(b"".join(idat)), height, width * channels, channels)
+    if channels == 1:
+        return rows
+    return _luma_bt601(rows.reshape(height, width, channels))
+
+
+def decode_pnm(data: bytes) -> np.ndarray:
+    """Decode a binary PGM (P5) or PPM (P6) with maxval ≤ 255 to (H, W)
+    uint8 grey."""
+    magic = data[:2]
+    if magic not in (b"P5", b"P6"):
+        raise ValueError(f"unsupported PNM format {magic!r} (binary P5 and P6 are read)")
+    fields: List[int] = []
+    pos = 2
+    while len(fields) < 3:
+        while data[pos : pos + 1].isspace():
+            pos += 1
+        if data[pos : pos + 1] == b"#":  # comment to the end of the line
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while not data[end : end + 1].isspace():
+            end += 1
+        fields.append(int(data[pos:end]))
+        pos = end
+    pos += 1  # the single whitespace byte after maxval
+    width, height, maxval = fields
+    if maxval > 255:
+        raise ValueError(f"unsupported PNM format: maxval {maxval} (8-bit samples are read)")
+    channels = 1 if magic == b"P5" else 3
+    pix = np.frombuffer(data, dtype=np.uint8, count=width * height * channels, offset=pos)
+    if channels == 1:
+        return pix.reshape(height, width).copy()
+    return _luma_bt601(pix.reshape(height, width, 3))
+
+
+def _default_read_fn(path: Path) -> Optional[np.ndarray]:
+    """Decode one frame file to (H, W) uint8 grey; None when the file is
+    missing. A format the port cannot read raises with the format's name."""
+    path = Path(path)
+    if not path.exists():
+        return None
+    data = path.read_bytes()
+    if data[:8] == _PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:2] in (b"P5", b"P6"):
+        return decode_pnm(data)
+    raise ValueError(
+        f"unsupported image format {path.suffix or data[:4]!r} for {path.name}: "
+        "the default reader decodes PNG and binary PGM/PPM; pass a read_fn for other formats"
+    )
+
+
 class FrameStream:
     """Iterate frames loaded by one background thread.
 
-    Parity: ``frame_stream.py:123-211``. ``read_fn(path)`` decodes one
-    frame (None on failure); it is required until the port has a decoder
-    of its own (ROADMAP step 14).
+    Parity: ``frame_stream.py:123-211``. ``read_fn`` is injectable for
+    tests/benchmarks (synthetic frames without disk I/O); the default
+    decodes PNG and binary PGM/PPM.
     """
 
     def __init__(
@@ -116,12 +253,7 @@ class FrameStream:
         self.timestamps = list(timestamps) if timestamps is not None else [float(i) for i in range(len(self.paths))]
         if len(self.timestamps) != len(self.paths):
             raise ValueError("timestamps must match paths length")
-        if read_fn is None:
-            raise NotImplementedError(
-                "FrameStream needs an explicit read_fn: the port's default frame decoder "
-                "(the C++ PNG/PGM decoder) comes with ROADMAP step 14"
-            )
-        self.read_fn = read_fn
+        self.read_fn = read_fn or _default_read_fn
         self.drop_on_backpressure = drop_on_backpressure
         self.stats = FrameStreamStats()
         self._buffer = BoundedRingBuffer(buffer_size)

@@ -10,10 +10,10 @@ every artifact carrying the ``{seed, config_hash}`` determinism payload.
 The device is explicit: ``SLAMSystem(config, device=...)`` runs every
 tensor op on that device (kernels K1/K2 on a CUDA device), and nothing
 moves to the CPU on its own; windowed bundle adjustment over each keyframe
-window (``enable_local_ba``, on by default) runs there too.
-Relocalization and map snapshots (ROADMAP step 12) are not ported yet: a
-configuration that enables them is refused with ``NotImplementedError``,
-never run without the stage.
+window (``enable_local_ba``, on by default) runs there too, as do
+relocalization after a tracking loss (``enable_relocalization``) and the
+map snapshot's vocabulary and histograms (``persist_map_snapshot``): the
+default configuration runs whole.
 """
 
 from __future__ import annotations
@@ -48,6 +48,12 @@ from mvslam_tpu_torch.frontend.pose_estimator import (
     RobustPoseEstimatorConfig,
     apply_stability_gates,
 )
+from mvslam_tpu_torch.loopclosure.map_builder import MapSnapshotBuilder
+from mvslam_tpu_torch.loopclosure.persistent_map import (
+    MapRelocalizer,
+    load_map_snapshot,
+    save_map_snapshot,
+)
 from mvslam_tpu_torch.runtime.frame_stream import FramePacket
 from mvslam_tpu_torch.slam.tracking import (
     bootstrap_frame,
@@ -63,19 +69,9 @@ from mvslam_tpu_torch.slam.tracking import (
 
 logger = logging.getLogger(__name__)
 
-# Stages of the JAX package's SLAMSystem that the port does not have yet,
-# by the config flag that enables each: the ROADMAP step that brings it.
-_NOT_PORTED = {
-    "enable_relocalization": "relocalization comes with ROADMAP step 12",
-    "persist_map_snapshot": "map snapshots come with ROADMAP step 12",
-}
-
-
 @dataclass(frozen=True)
 class SLAMSystemConfig:
-    """Same fields and defaults as the reference's config. The port refuses
-    ``enable_relocalization`` and ``persist_map_snapshot`` (see
-    ``_NOT_PORTED``), so it runs with both set to False;
+    """Same fields and defaults as the reference's config;
     ``program_cache_budget_gb`` is kept for parity and has no effect
     (PyTorch keeps no compiled programs to evict)."""
 
@@ -156,12 +152,6 @@ class SLAMSystem:
 
     def __init__(self, config: Optional[SLAMSystemConfig] = None, *, device) -> None:
         self.config = config or SLAMSystemConfig()
-        refused = [why for flag, why in _NOT_PORTED.items() if getattr(self.config, flag)]
-        if refused:
-            raise NotImplementedError(
-                "SLAMSystemConfig enables stages the port does not have yet: " + "; ".join(refused)
-                + ". Set enable_relocalization and persist_map_snapshot to False."
-            )
         self.device = torch.device(device)
         self.registry = DeterminismRegistry(seed=self.config.seed, config_hash=self.config.config_hash)
         self.registry.apply_global_seed()
@@ -188,6 +178,8 @@ class SLAMSystem:
         self._failure_count = 0
         self._reloc_count = 0
         self._injected_losses: set = set()
+        self._relocalizer = None  # set via load_map_snapshot / built on demand
+        self._map_snapshot = None
         self._local_ba = (
             WindowBundleAdjuster(self.K, device=self.device) if self.config.enable_local_ba else None
         )
@@ -342,8 +334,6 @@ class SLAMSystem:
             self._pose = self._pose @ rel
             diag.pose_success = True
         except PoseEstimationFailure as failure:
-            # The pose chain holds; relocalization (ROADMAP step 12) would
-            # re-anchor it here.
             self._failure_count += 1
             diag.pose_success = False
             diag.failure_reason = failure.reason
@@ -351,6 +341,8 @@ class SLAMSystem:
                 "pose estimation failed",
                 extra={"frame_id": frame_id, "reason": failure.reason},
             )
+            if self.config.enable_relocalization:
+                diag.relocalized = self._attempt_relocalization(frame_id, features_provider, diag)
 
         match_ratio = diag.num_matches / max(diag.num_features, 1)
         self._record_frame(frame_id, timestamp, diag, match_ratio, features_provider)
@@ -398,6 +390,65 @@ class SLAMSystem:
                 self.trajectory.poses[idx] = delta @ self.trajectory.poses[idx]
         if n_traj:
             self._pose = self.trajectory.poses[-1].copy()
+
+    # ------------------------------------------------------------------
+    # Relocalization (persistent-map path)
+    # ------------------------------------------------------------------
+
+    def _new_relocalizer(self) -> MapRelocalizer:
+        return MapRelocalizer(
+            self._map_snapshot,
+            self.K,
+            min_inliers=self.config.relocalization_min_inliers,
+            key=self.registry.key_for("relocalization", self.device),
+            device=self.device,
+        )
+
+    def _build_map_snapshot(self) -> None:
+        builder = MapSnapshotBuilder(key=self.registry.key_for("map_builder"), device=self.device)
+        self._map_snapshot, _ = builder.build_snapshot(self.keyframes.keyframes)
+
+    def load_map_snapshot(self, arrays_path: Path, metadata_path: Path) -> None:
+        """Load a persisted map and arm the relocalizer."""
+        self._map_snapshot = load_map_snapshot(arrays_path, metadata_path)
+        self._relocalizer = self._new_relocalizer()
+
+    def _ensure_relocalizer(self) -> bool:
+        """Build a map snapshot + relocalizer from live keyframes on demand.
+
+        Too little map to train a vocabulary on (a ``ValueError`` from the
+        builder) means "no relocalizer yet"; any other failure, a device
+        error included, propagates."""
+        if self._relocalizer is not None:
+            return True
+        if len(self.keyframes) < 2:
+            return False
+        try:
+            with timed_event(self.telemetry, "map_snapshot_build"):
+                self._build_map_snapshot()
+                self._relocalizer = self._new_relocalizer()
+            return True
+        except ValueError as exc:
+            logger.warning("relocalizer construction failed", extra={"error": str(exc)})
+            return False
+
+    def _attempt_relocalization(self, frame_id: int, features_provider, diag: FrameDiagnostics) -> bool:
+        """BoW candidate search + geometric verification; re-anchors pose."""
+        if not self._ensure_relocalizer():
+            return False
+        with timed_event(
+            self.telemetry, "relocalization_search", metadata={"frame_id": frame_id}
+        ) as meta:
+            xy, desc, valid = features_provider()
+            hit = self._relocalizer.relocalize(xy, desc, valid)
+            meta["success"] = hit is not None
+            if hit is None:
+                return False
+            kf_pose, rel, info = hit
+            self._pose = kf_pose @ rel
+            self._reloc_count += 1
+            meta.update({k: v for k, v in info.items() if np.isscalar(v)})
+            return True
 
     # ------------------------------------------------------------------
     # Runners
@@ -599,6 +650,16 @@ class SLAMSystem:
             summary_path = self.store.save_report("telemetry_summary", summary)
         except Exception as exc:  # the summary is optional; the run's artifacts stand
             logger.warning("telemetry summary failed", extra={"error": str(exc)})
+        map_paths = None
+        if self.config.persist_map_snapshot and len(self.keyframes) >= 2:
+            try:
+                if self._map_snapshot is None:
+                    self._build_map_snapshot()
+                paths = self.store.map_paths("map_snapshot")
+                save_map_snapshot(self._map_snapshot, paths["arrays"], paths["metadata"])
+                map_paths = paths
+            except ValueError as exc:  # too little map for a vocabulary; device errors propagate
+                logger.warning("map snapshot persist failed", extra={"error": str(exc)})
         return SLAMRunResult(
             run_dir=self.run_dir,
             trajectory_path=traj_path,
@@ -606,7 +667,7 @@ class SLAMSystem:
             diagnostics_path=diag_path,
             telemetry_path=telem_path,
             telemetry_summary_path=summary_path,
-            map_snapshot_paths=None,
+            map_snapshot_paths=map_paths,
             num_frames=self._frame_count,
             num_keyframes=len(self.keyframes),
             num_failures=self._failure_count,

@@ -1,0 +1,196 @@
+"""KITTI run CLI: dataset validation → config → SLAMSystem → artifacts.
+
+Port of ``mvslam_tpu/slam/runner.py``: ``run_kitti_sequence``, strict JSON
+pipeline-config loading with unknown-field rejection, sync / streaming
+ingestion selection, artifact finalization. ``run_kitti_sequence(...,
+device="cuda")`` and ``--device`` carry the device. The ``async`` and
+``native`` ingestion modes need the ``runtime`` ingestion pipeline and the
+C++ loader, which are not ported yet (ROADMAP step 14): the function raises
+``NotImplementedError`` for them, and the command line does not offer them
+or the decode-worker count that only they use. Entry point: ``python -m
+mvslam_tpu_torch.slam.runner``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import sys
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from mvslam_tpu_torch.core.determinism import hash_config_path
+from mvslam_tpu_torch.data.kitti import KittiSequence
+from mvslam_tpu_torch.data.validation import validate_kitti
+from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
+from mvslam_tpu_torch.runtime.frame_stream import _default_read_fn
+from mvslam_tpu_torch.slam.api import SLAMRunResult, SLAMSystem, SLAMSystemConfig
+
+logger = logging.getLogger(__name__)
+
+
+def _filter_strict(cls, payload: Dict[str, Any], section: str) -> Dict[str, Any]:
+    """Reject unknown config fields (parity: ``slam_runner.py:34-39``)."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(payload) - known
+    if unknown:
+        raise ValueError(f"unknown {section} config fields: {sorted(unknown)}")
+    return payload
+
+
+def load_pipeline_config(path: Optional[Path]) -> Dict[str, Any]:
+    """Load {feature, pose, keyframe} sections with strict field checking.
+
+    Parity: ``slam_runner.py:42-71``.
+    """
+    if path is None:
+        return {}
+    payload = json.loads(Path(path).read_text())
+    out: Dict[str, Any] = {}
+    if "feature" in payload:
+        out["feature"] = FeaturePipelineConfig(**_filter_strict(FeaturePipelineConfig, payload["feature"], "feature"))
+    if "pose" in payload:
+        out["pose"] = RobustPoseEstimatorConfig(**_filter_strict(RobustPoseEstimatorConfig, payload["pose"], "pose"))
+    if "keyframe" in payload:
+        out["keyframe"] = KeyframeConfig(**_filter_strict(KeyframeConfig, payload["keyframe"], "keyframe"))
+    known_sections = {"feature", "pose", "keyframe", "run"}
+    unknown = set(payload) - known_sections
+    if unknown:
+        raise ValueError(f"unknown pipeline config sections: {sorted(unknown)}")
+    return out
+
+
+def run_kitti_sequence(
+    dataset_root: Path,
+    sequence: str = "00",
+    camera: int = 0,
+    run_id: str = "kitti_run",
+    output_root: Path = Path("runs"),
+    seed: int = 0,
+    max_frames: Optional[int] = None,
+    config_path: Optional[Path] = None,
+    ingestion: str = "stream",  # "sync" | "stream"
+    buffer_size: int = 8,
+    validate: bool = True,
+    inject_loss_at: Optional[int] = None,
+    window: int = 8,
+    windows_per_dispatch: int = 1,
+    device="cuda",
+) -> SLAMRunResult:
+    """Validate the dataset, run the sequence on ``device``, persist the
+    artifacts."""
+    if ingestion in ("async", "native"):
+        raise NotImplementedError(
+            f"ingestion mode {ingestion!r} needs the runtime ingestion pipeline / the C++ frame "
+            "loader, which come with ROADMAP step 14; use 'sync' or 'stream'"
+        )
+    if ingestion not in ("sync", "stream"):
+        raise ValueError(f"unknown ingestion mode {ingestion!r}")
+    if validate:
+        result = validate_kitti(dataset_root, sequence, camera)
+        if not result.ok:
+            raise ValueError(f"dataset validation failed: {result.errors}")
+
+    sections = load_pipeline_config(config_path)
+    seq = KittiSequence(dataset_root, sequence, camera)
+    K = seq.camera_intrinsics()
+    config = SLAMSystemConfig(
+        run_id=run_id,
+        output_root=Path(output_root),
+        seed=seed,
+        config_hash=hash_config_path(config_path),
+        fx=float(K[0, 0]),
+        fy=float(K[1, 1]),
+        cx=float(K[0, 2]),
+        cy=float(K[1, 2]),
+        **sections,
+    )
+    system = SLAMSystem(config, device=device)
+    if inject_loss_at is not None:
+        system.inject_tracking_loss(inject_loss_at)
+
+    if ingestion == "sync":
+        entries = seq.frame_entries(max_frames)
+        frames: List = []
+        timestamps: List[float] = []
+        for e in entries:
+            frame = _default_read_fn(e.path)
+            if frame is not None:
+                frames.append(np.asarray(frame))
+                timestamps.append(e.timestamp)
+        system.run_sequence(frames, timestamps, window=window, windows_per_dispatch=windows_per_dispatch)
+    else:
+        system.run_stream(
+            seq.iter_frames(max_frames, buffer_size=buffer_size),
+            window=window,
+            windows_per_dispatch=windows_per_dispatch,
+        )
+    return system.finalize_run()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(description="Run monocular SLAM on a KITTI sequence (PyTorch)")
+    parser.add_argument("--dataset", type=Path, required=True)
+    parser.add_argument("--sequence", default="00")
+    parser.add_argument("--camera", type=int, default=0)
+    parser.add_argument("--run-id", default="kitti_run")
+    parser.add_argument("--output-root", type=Path, default=Path("runs"))
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max-frames", type=int, default=None)
+    parser.add_argument("--config", type=Path, default=None, help="pipeline config JSON")
+    parser.add_argument("--ingestion", choices=["sync", "stream"], default="stream")
+    parser.add_argument("--buffer-size", type=int, default=8)
+    parser.add_argument("--device", default="cuda", help="torch device of every stage (cuda, cpu)")
+    parser.add_argument("--window", type=int, default=8, help="frames per tracking call")
+    parser.add_argument(
+        "--windows-per-dispatch",
+        type=int,
+        default=1,
+        help="windows run inside one dispatch (throughput mode)",
+    )
+    parser.add_argument("--no-validate", action="store_true")
+    parser.add_argument("--inject-loss-at", type=int, default=None)
+    parser.add_argument("-v", "--verbose", action="store_true")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
+    result = run_kitti_sequence(
+        dataset_root=args.dataset,
+        sequence=args.sequence,
+        camera=args.camera,
+        run_id=args.run_id,
+        output_root=args.output_root,
+        seed=args.seed,
+        max_frames=args.max_frames,
+        config_path=args.config,
+        ingestion=args.ingestion,
+        buffer_size=args.buffer_size,
+        validate=not args.no_validate,
+        inject_loss_at=args.inject_loss_at,
+        window=args.window,
+        windows_per_dispatch=args.windows_per_dispatch,
+        device=args.device,
+    )
+    print(
+        json.dumps(
+            {
+                "run_dir": str(result.run_dir),
+                "frames": result.num_frames,
+                "keyframes": result.num_keyframes,
+                "failures": result.num_failures,
+                "relocalizations": result.num_relocalizations,
+                "trajectory": str(result.trajectory_path),
+            },
+            indent=2,
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -295,12 +295,15 @@ def test_slam_system_with_local_ba_against_ground_truth(tmp_path):
 
 
 def test_slam_system_still_refuses_relocalization_and_snapshots(tmp_path):
+    """Relocalization and snapshots were refused until they were ported;
+    now each flag is taken, alone or with the other, and BA stays on the
+    system's device."""
     from mvslam_tpu_torch.slam import api as tapi
 
     for flag in ("enable_relocalization", "persist_map_snapshot"):
         cfg = tapi.SLAMSystemConfig(output_root=tmp_path, **{
             "enable_relocalization": False, "persist_map_snapshot": False, flag: True})
-        with pytest.raises(NotImplementedError, match="step 12"):
-            tapi.SLAMSystem(cfg, device="cpu")
+        system = tapi.SLAMSystem(cfg, device="cpu")
+        assert getattr(system.config, flag) is True
     system = tapi.SLAMSystem(dataclasses.replace(cfg, persist_map_snapshot=False), device="cpu")
     assert isinstance(system._local_ba, tba.WindowBundleAdjuster) and system._local_ba.device == torch.device("cpu")

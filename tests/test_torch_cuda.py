@@ -1,7 +1,7 @@
 """CUDA kernels K1 and K2 against their plain PyTorch versions, on the card,
 alone and inside LK and ``SLAMSystem``; the back end's BA and Gauss-Newton
 cores on the card against the same calls on the CPU, and bit-equal between
-two card runs.
+two card runs; the bag-of-words stages and the device index on the card.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``); without a
 card they skip. This file imports no JAX, so it also runs on a machine
@@ -270,3 +270,175 @@ def test_slam_system_with_local_ba_on_the_card(cuda, tmp_path):
     events = [e for e in system.telemetry.events() if e.name == "local_ba"]
     assert len(events) == sum(d.is_keyframe for d in diags) - 1 >= 5
     assert system._local_ba.last_diagnostics is not None
+
+
+def test_argmin_and_stable_topk_tie_order_on_the_card(cuda):
+    """``argmin`` takes the first minimum and the stable top-k the lower
+    index among equal values, on the card as on the CPU (what JAX does):
+    planted ties in a distance matrix and in a score vector."""
+    from mvslam_tpu_torch.ops.fast import topk_stable
+
+    rng = np.random.default_rng(0)
+    d = rng.integers(0, 50, size=(4096, 64)).astype(np.float32)  # many exact ties per row
+    d[:, 40] = d.min(axis=1)
+    d[:, 7] = d.min(axis=1)
+    dt = torch.from_numpy(d)
+    assert torch.equal(torch.argmin(dt.to(cuda), dim=1).cpu(), torch.argmin(dt, dim=1))
+    assert np.array_equal(torch.argmin(dt.to(cuda), dim=1).cpu().numpy(), d.argmin(axis=1))
+    s = rng.integers(0, 200, size=50_000).astype(np.float32)
+    values, idx = topk_stable(torch.from_numpy(s).to(cuda), 64)
+    order = np.lexsort((np.arange(len(s)), -s))[:64]
+    assert np.array_equal(idx.cpu().numpy(), order) and np.array_equal(values.cpu().numpy(), s[order])
+
+
+def _descriptors(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def test_bow_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda):
+    """``_lloyd`` and ``assign_histogram`` on the card: two runs bit-equal
+    (one-hot products, no atomics), and equal to the CPU's but for
+    descriptors whose two best distances nearly tie (histograms within
+    cosine 0.999)."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.loopclosure import bow
+
+    desc = _descriptors(4000)
+    v1 = bow.train_vocabulary(desc, prng.key(5), vocab_size=64, iterations=15, device=cuda)
+    v2 = bow.train_vocabulary(desc, prng.key(5), vocab_size=64, iterations=15, device=cuda)
+    assert np.array_equal(v1, v2) and np.isfinite(v1).all()
+    cpu = bow.train_vocabulary(desc, prng.key(5), vocab_size=64, iterations=15, device="cpu")
+    valid = np.ones(500, bool)
+    for start in range(0, 4000, 500):
+        h1 = bow.compute_bow_histogram(desc[start : start + 500], valid, v1, device=cuda)
+        h2 = bow.compute_bow_histogram(desc[start : start + 500], valid, v1, device=cuda)
+        assert np.array_equal(h1, h2) and abs(np.linalg.norm(h1) - 1.0) < 1e-6
+        assert float(h1 @ bow.compute_bow_histogram(desc[start : start + 500], valid, cpu, device="cpu")) >= 0.999
+    dots = bow._bf16_dots(torch.rand(64, 256, device=cuda), torch.rand(32, 256, device=cuda))
+    assert dots.dtype == torch.float32
+
+
+def test_device_index_on_the_card_equals_the_host_ranking(cuda):
+    """The index phase's checks at a small size: top-k ids equal the host's
+    (-score, frame id) order with planted exact ties, a grown index equals
+    a bulk load, out-of-order ids raise."""
+    from mvslam_tpu_torch.loopclosure.device_index import DeviceBoWIndex
+
+    rng = np.random.default_rng(1)
+    hist = rng.gamma(0.15, size=(3000, 64)).astype(np.float32)
+    hist[2000] = hist[5]
+    hist[17] = hist[16]
+    hist /= np.linalg.norm(hist, axis=1, keepdims=True)
+    ids = list(range(0, 6000, 2))
+    bulk = DeviceBoWIndex.from_histograms(ids, hist, device=cuda)
+    grown = DeviceBoWIndex(64, 8, device=cuda)
+    for i, row in zip(ids, hist):
+        grown.add(i, row)
+    assert grown.capacity == 4096 and bulk._buf.device.type == "cuda"
+    for q in (hist[5], hist[16], hist[77], (lambda v: v / np.linalg.norm(v))(rng.gamma(0.15, size=64).astype(np.float32))):
+        scores = hist.astype(np.float64) @ q.astype(np.float64)
+        order = np.lexsort((np.arange(3000), -scores))
+        got = [i // 2 for i, _ in bulk.topk(q, k=16)]
+        clear = np.abs(np.diff(scores[order[:17]])) > 1e-6
+        for pos in range(16):
+            if got[pos] != order[pos]:
+                assert not clear[max(pos - 1, 0)] or not clear[pos], (pos, got, order[:16])
+                assert scores[got[pos]] != scores[order[pos]]
+        assert [i for i, _ in grown.topk(q, k=16)] == [i for i, _ in bulk.topk(q, k=16)]
+        np.testing.assert_allclose(bulk.scores(q), scores, atol=1e-5)
+    assert [i // 2 for i, _ in bulk.topk(hist[5], k=2)] == [5, 2000]
+    assert [i // 2 for i, _ in bulk.topk(hist[16], k=2)] == [16, 17]
+    with pytest.raises(ValueError, match="strictly increasing"):
+        grown.add(10, hist[0])
+
+
+def test_default_configuration_relocalizes_on_the_card(cuda, tmp_path):
+    """``SLAMSystem`` with nothing switched off, on the card: an injected
+    loss relocalizes against the snapshot built on demand, and the
+    snapshot is persisted and reloads."""
+    from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.loopclosure.persistent_map import load_map_snapshot
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    rng = np.random.default_rng(21)
+    base = rng.uniform(0, 30, size=(128, 192 + 5 * 8)).astype(np.float32)
+    for _ in range(120):
+        y, x, s = rng.integers(25, 98), rng.integers(25, base.shape[1] - 30), rng.integers(3, 8)
+        base[y : y + s, x : x + s] = rng.uniform(140, 255)
+    frames = [base[:, i * 5 : i * 5 + 192].copy() for i in range(8)]
+    cfg = SLAMSystemConfig(
+        output_root=tmp_path, seed=7, fx=120.0, fy=120.0, cx=96.0, cy=64.0,
+        feature=FeaturePipelineConfig(num_features=256, max_matches=128),
+        pose=RobustPoseEstimatorConfig(num_hypotheses=128),
+        keyframe=KeyframeConfig(min_translation=0.01), relocalization_min_inliers=15,
+    )
+    system = SLAMSystem(cfg, device=cuda)
+    system.inject_tracking_loss(6)
+    diags = system.run_sequence(frames, window=1)
+    assert diags[6].injected_loss and diags[6].relocalized
+    result = system.finalize_run()
+    assert result.num_relocalizations >= 1 and result.map_snapshot_paths is not None
+    snapshot = load_map_snapshot(result.map_snapshot_paths["arrays"], result.map_snapshot_paths["metadata"])
+    assert len(snapshot.keyframes) == 6
+
+
+def test_loop_geometry_on_the_card_matches_the_cpu(cuda):
+    """The offline pipeline's loop stage at full width, on the same
+    keyframes on the card and on the CPU: a loop pair two steps short of an
+    exact revisit (a real baseline), the exact revisit (zero baseline, which
+    leaves the translation undetermined) and the chain neighbour. Match
+    counts and slots are equal; inliers within the vote tolerance of
+    near-tied hypotheses; R within 0.1 degrees, and unit t within 1e-3 on
+    the pair with a baseline when both count the same inliers; the verdict
+    of ``_verify_loop`` is the same and so is its edge's rotation."""
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from mvslam_tpu_torch.backend.keyframes import Keyframe
+    from mvslam_tpu_torch.core.determinism import DeterminismRegistry
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.slam import offline
+    from mvslam_tpu_torch.slam.tracking import bootstrap_frame
+
+    places = {4: 1.0, 5: 1.25, 22: 1.5, 24: 1.0}  # frame id -> x of an out-and-back drive, 0.25 per frame
+    ids = sorted(places)
+    frames, _, (fx, fy, cx, cy), poses = render_scene(
+        num_frames=len(ids), h=370, w=1226, seed=2, n_pts=400, noise=6.0,
+        traj_fn=lambda i: (np.eye(3), np.array([places[ids[i]], 0.0, 0.0])),
+    )
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    kfs = {}
+    for frame, pose, i in zip(frames, poses, ids):
+        fs = bootstrap_frame(torch.from_numpy(frame).to(cuda), FeaturePipelineConfig())
+        kfs[i] = Keyframe(frame_id=i, timestamp=0.1 * i, pose=pose.copy(), keypoints=fs.xy.cpu().numpy(),
+                          descriptors=fs.descriptors.cpu().numpy().view(np.uint32), valid=fs.valid.cpu().numpy())
+    systems = {
+        name: SimpleNamespace(K=K, registry=DeterminismRegistry(seed=3), device=torch.device(dev), telemetry=None)
+        for name, dev in (("card", cuda), ("cpu", "cpu"))
+    }
+    config = offline.SLAMRunConfig(input_path=Path("."), seed=3, loop_min_inliers=25)
+
+    def angle(Ra, Rb):
+        return float(np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1) / 2, -1, 1))))
+
+    for query in (22, 24):
+        salts = [query, 4 * 2 + 1]
+        rows = {name: offline._loop_geometry(s, kfs[4], [kfs[query], kfs[5]], salts) for name, s in systems.items()}
+        assert np.array_equal(offline._loop_geometry(systems["card"], kfs[4], [kfs[query], kfs[5]], salts), rows["card"])
+        for row, ref_row in zip(rows["card"], rows["cpu"]):
+            a, b = offline._unpack_loop_row(row), offline._unpack_loop_row(ref_row)
+            assert a["num_valid"] == b["num_valid"] >= 100 and np.array_equal(a["idx_a"], b["idx_a"])
+            assert abs(a["num_inliers"] - b["num_inliers"]) <= max(3, 0.1 * b["num_inliers"])
+        a, b = offline._unpack_loop_row(rows["card"][0]), offline._unpack_loop_row(rows["cpu"][0])
+        assert angle(a["R"], b["R"]) < 0.1
+        if query == 22 and a["num_inliers"] == b["num_inliers"]:
+            assert np.abs(a["t"] - b["t"]).max() < 1e-3
+        verdicts = {name: offline._verify_loop(s, kfs[4], kfs[query], config, kf_a_next=kfs[5]) for name, s in systems.items()}
+        assert (verdicts["card"] is None) == (verdicts["cpu"] is None)
+        if verdicts["card"] is not None:
+            assert angle(verdicts["card"][0][:3, :3], verdicts["cpu"][0][:3, :3]) < 0.1
+            assert angle(verdicts["card"][0][:3, :3], np.eye(3)) < 0.5  # the drive does not turn

@@ -1,0 +1,277 @@
+"""The port's own frame decoder (numpy + zlib) against Pillow, its PNG
+writer, and the dataset readers built on it against the JAX package's on
+fake datasets.
+
+Grey PNG/PGM pixels are exact. Colour goes to grey by BT.601 in fixed
+point as the reference's native decoder does; Pillow rounds its own fixed
+point, so colour agrees within 1 level.
+"""
+
+import io
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+import torch_parity  # noqa: F401  (one torch thread per worker)
+
+from mvslam_tpu.data import kitti as jkitti
+from mvslam_tpu.data import tum as jtum
+from mvslam_tpu.data import validation as jvalidation
+from mvslam_tpu.data.camera_rig import CameraRig as JCameraRig
+from mvslam_tpu_torch.data import kitti as tkitti
+from mvslam_tpu_torch.data import tum as ttum
+from mvslam_tpu_torch.data import validation as tvalidation
+from mvslam_tpu_torch.data.camera_rig import CameraRig
+from mvslam_tpu_torch.data.synthetic import write_kitti_sequence, write_png_gray
+from mvslam_tpu_torch.runtime import frame_stream as tfs
+
+COLOR_TYPES = {"L": (0, 1), "RGB": (2, 3), "RGBA": (6, 4)}
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+
+
+def _encode_png(img: np.ndarray, mode: str, filter_type) -> bytes:
+    """A PNG with the given filter type on every scanline (``"mixed"``:
+    the five types in turn), written from the specification."""
+    color, bpp = COLOR_TYPES[mode]
+    h, w = img.shape[:2]
+    rows = img.reshape(h, w * bpp).astype(int)
+    raw = bytearray()
+    prev = np.zeros(w * bpp, int)
+    for y in range(h):
+        ft = y % 5 if filter_type == "mixed" else filter_type
+        cur = rows[y]
+        left = np.concatenate([np.zeros(bpp, int), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, int), prev[:-bpp]])
+        pred = {
+            0: np.zeros_like(cur), 1: left, 2: prev, 3: (left + prev) // 2,
+            4: np.array([_paeth(a, b, c) for a, b, c in zip(left, prev, upleft)]),
+        }[ft]
+        raw.append(ft)
+        raw += ((cur - pred) % 256).astype(np.uint8).tobytes()
+        prev = cur
+
+    def chunk(ctype, body):
+        return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", zlib.crc32(ctype + body))
+
+    comp = zlib.compress(bytes(raw))
+    half = len(comp) // 2  # two IDAT chunks: the stream may be split anywhere
+    return (
+        b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+        + chunk(b"tEXt", b"Comment\x00ancillary chunks are skipped")
+        + chunk(b"IDAT", comp[:half]) + chunk(b"IDAT", comp[half:]) + chunk(b"IEND", b"")
+    )
+
+
+def _image(mode, seed=0, h=23, w=37):
+    rng = np.random.default_rng(seed)
+    channels = COLOR_TYPES[mode][1]
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = ((yy * 5 + xx * 3)[..., None] + 40 * np.arange(channels)) % 256
+    noise = rng.integers(0, 256, size=(h, w, channels))
+    img = np.where(rng.uniform(size=(h, w, 1)) < 0.5, smooth, noise).astype(np.uint8)
+    return img[..., 0] if channels == 1 else img
+
+
+@pytest.mark.parametrize("filter_type", [0, 1, 2, 3, 4, "mixed"])
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])
+def test_png_decoder_against_pillow(mode, filter_type):
+    img = _image(mode, seed=3)
+    data = _encode_png(img, mode, filter_type)
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.mode == mode and np.array_equal(np.asarray(im), img)  # the test's encoder is right
+        ref = np.asarray(im.convert("L"))
+    got = tfs.decode_png(data)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    diff = int(np.abs(got.astype(int) - ref.astype(int)).max())
+    assert diff == 0 if mode == "L" else diff <= 1
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])
+def test_png_written_by_pillow(mode, tmp_path):
+    """Pillow's own encoder (adaptive filters, optimised) through the
+    default reader."""
+    img = _image(mode, seed=5, h=64, w=80)
+    path = tmp_path / "a.png"
+    Image.fromarray(img, mode=mode).save(path, optimize=True)
+    got = tfs._default_read_fn(path)
+    ref = np.asarray(Image.open(path).convert("L"))
+    diff = int(np.abs(got.astype(int) - ref.astype(int)).max())
+    assert diff == 0 if mode == "L" else diff <= 1
+
+
+def test_grey_levels_of_grey_colour_are_exact():
+    """R = G = B = v decodes to v for every level (the weights sum to one)."""
+    v = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    assert np.array_equal(tfs.decode_png(_encode_png(np.stack([v, v, v], -1), "RGB", 1)), v)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+def test_pnm_decoder_against_pillow(mode, tmp_path):
+    img = _image(mode, seed=7)
+    path = tmp_path / ("a.pgm" if mode == "L" else "a.ppm")
+    Image.fromarray(img, mode=mode).save(path)
+    got = tfs._default_read_fn(path)
+    ref = np.asarray(Image.open(path).convert("L"))
+    diff = int(np.abs(got.astype(int) - ref.astype(int)).max())
+    assert diff == 0 if mode == "L" else diff <= 1
+    # A comment in the header is skipped.
+    body = path.read_bytes()
+    commented = body[:3] + b"# made by a test\n" + body[3:]
+    assert np.array_equal(tfs.decode_pnm(commented), got)
+
+
+def test_png_writer_round_trips(tmp_path):
+    img = _image("L", seed=9, h=370, w=1226)
+    write_png_gray(tmp_path / "a.png", img)
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "a.png")), img)
+    assert np.array_equal(tfs._default_read_fn(tmp_path / "a.png"), img)
+    with pytest.raises(ValueError, match=r"\(H, W\)"):
+        write_png_gray(tmp_path / "b.png", np.zeros((2, 3, 3), np.uint8))
+
+
+@pytest.mark.parametrize("what", ["16bit", "palette", "grey_alpha", "interlaced", "jpeg", "ascii_pgm"])
+def test_unsupported_formats_are_named(what, tmp_path):
+    img = _image("L", seed=1)
+    path = tmp_path / "x.png"
+    if what == "16bit":
+        Image.fromarray(img.astype(np.uint16) * 257).save(path)
+        match = "16-bit"
+    elif what == "palette":
+        Image.fromarray(img).convert("P").save(path)
+        match = "palette"
+    elif what == "grey_alpha":
+        Image.fromarray(np.stack([img, img], -1), mode="LA").save(path)
+        match = "grey\\+alpha"
+    elif what == "interlaced":
+        data = bytearray(_encode_png(img, "L", 0))
+        data[28] = 1  # IHDR's interlace byte (the CRC is not checked)
+        path.write_bytes(bytes(data))
+        match = "interlaced"
+    elif what == "jpeg":
+        path = tmp_path / "x.jpg"
+        Image.fromarray(img).save(path)
+        match = "jpg"
+    else:
+        path = tmp_path / "x.pgm"
+        path.write_bytes(b"P2\n2 2\n255\n1 2 3 4\n")
+        match = "pgm"
+    with pytest.raises(ValueError, match=match):
+        tfs._default_read_fn(path)
+    assert tfs._default_read_fn(tmp_path / "missing.png") is None
+
+
+# ----------------------------------------------------------------------
+# Dataset readers on fake datasets
+# ----------------------------------------------------------------------
+
+def _strip(num_frames, h=48, w=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(h, w), dtype=np.uint8) for _ in range(num_frames)]
+
+
+@pytest.fixture()
+def fake_kitti(tmp_path):
+    frames = _strip(5)
+    root, gt = write_kitti_sequence(tmp_path / "kitti", frames, np.arange(15.0).reshape(5, 3), (100.0, 101.0, 32.0, 24.0))
+    seq_dir = root / "sequences" / "00"
+    P = "100.0 0 32.0 0 0 101.0 24.0 0 0 0 1 0"
+    (seq_dir / "calib.txt").write_text(f"P0: {P}\nP1: {P.replace('0 0 0 1 0', '-38.6 0 0 1 0')}\n")
+    (seq_dir / "image_1").mkdir()
+    for i, f in enumerate(frames):
+        write_png_gray(seq_dir / "image_1" / f"{i:06d}.png", f[:, ::-1])
+    return root, gt, frames
+
+
+def _packets(packets):
+    return [(p.index, p.timestamp, p.frame.tolist(), p.path.name) for p in packets]
+
+
+def test_kitti_sequence_equals_reference(fake_kitti):
+    """The reference decodes these files with its C++ library or Pillow,
+    the port with its own decoder: the same packets."""
+    root, gt, frames = fake_kitti
+    ours, ref = tkitti.KittiSequence(root, "00"), jkitti.KittiSequence(root, "00")
+    assert len(ours) == len(ref) == 5
+    assert np.array_equal(ours.camera_intrinsics(), ref.camera_intrinsics())
+    assert [(e.index, e.timestamp, e.path) for e in ours.frame_entries(3)] == [
+        (e.index, e.timestamp, e.path) for e in ref.frame_entries(3)
+    ]
+    got = _packets(ours.iter_frames(4))
+    assert got == _packets(ref.iter_frames(4)) and len(got) == 4
+    assert got[2][2] == frames[2].tolist()
+    assert ours.nearest_frame(0.26) == ref.nearest_frame(0.26)
+    assert np.array_equal(tkitti.load_ground_truth_poses(gt), jkitti.load_ground_truth_poses(gt))
+    calib = tkitti.parse_kitti_calib_file(root / "sequences" / "00" / "calib.txt")
+    ref_calib = jkitti.parse_kitti_calib_file(root / "sequences" / "00" / "calib.txt")
+    assert calib.keys() == ref_calib.keys() and all(np.array_equal(calib[k], ref_calib[k]) for k in calib)
+    multi, ref_multi = tkitti.MultiCameraKittiSequence(root, "00"), jkitti.MultiCameraKittiSequence(root, "00")
+    assert isinstance(multi.rig(), CameraRig) and isinstance(ref_multi.rig(), JCameraRig)
+    assert [c for c in multi.rig().cameras] == [c for c in ref_multi.rig().cameras]
+
+
+def test_validate_kitti_equals_reference(fake_kitti, tmp_path):
+    root, _, _ = fake_kitti
+    ours, ref = tvalidation.validate_kitti(root, "00", 0), jvalidation.validate_kitti(root, "00", 0)
+    assert ours.ok and ours.to_dict() == ref.to_dict()
+    ours, ref = tvalidation.validate_kitti_multi_camera(root, "00"), jvalidation.validate_kitti_multi_camera(root, "00")
+    assert ours.to_dict() == ref.to_dict()
+    (root / "sequences" / "00" / "times.txt").write_text("0.0\n0.1\n")
+    ours, ref = tvalidation.validate_kitti(root, "00", 0), jvalidation.validate_kitti(root, "00", 0)
+    assert ours.to_dict() == ref.to_dict()
+    ours, ref = tvalidation.validate_kitti(tmp_path / "none", "00", 0), jvalidation.validate_kitti(tmp_path / "none", "00", 0)
+    assert not ours.ok and ours.to_dict() == ref.to_dict()
+
+
+def test_kitti_raw_session_equals_reference(tmp_path):
+    date = "2011_09_26"
+    drive_dir = tmp_path / date / f"{date}_drive_0001_sync"
+    (drive_dir / "image_00" / "data").mkdir(parents=True)
+    (drive_dir / "oxts" / "data").mkdir(parents=True)
+    frames = _strip(4, seed=2)
+    for i, f in enumerate(frames):
+        write_png_gray(drive_dir / "image_00" / "data" / f"{i:010d}.png", f)
+        lon = 8.43 + np.degrees(0.8 * i / (6378137.0 * np.cos(np.radians(49.0))))
+        (drive_dir / "oxts" / "data" / f"{i:010d}.txt").write_text(f"49.000000000 {lon:.12f} 112.000 0 0 0 0 0 0 0\n")
+    (tmp_path / date / "calib_cam_to_cam.txt").write_text("P_rect_00: 100 0 32 0 0 100 24 0 0 0 1 0\n")
+    ours = tkitti.KittiRawSession(base_dir=tmp_path, date=date, drive="1")
+    ref = jkitti.KittiRawSession(base_dir=tmp_path, date=date, drive="1")
+    assert ours.image_paths() == ref.image_paths() and len(ours.image_paths()) == 4
+    assert np.array_equal(ours.camera_intrinsics(), ref.camera_intrinsics())
+    assert np.array_equal(ours.oxts_positions(), ref.oxts_positions())
+    assert _packets(ours.iter_frames(3)) == _packets(ref.iter_frames(3))
+
+
+def test_tum_sequence_equals_reference(tmp_path):
+    (tmp_path / "rgb").mkdir()
+    frames = _strip(4, seed=3)
+    stamps = [1305031102.175304 + 0.033 * i for i in range(4)]
+    for s, f in zip(stamps, frames):
+        Image.fromarray(np.stack([f, f, f], -1), mode="RGB").save(tmp_path / "rgb" / f"{s:.6f}.png")
+    (tmp_path / "rgb.txt").write_text(
+        "# color images\n# timestamp filename\n" + "\n".join(f"{s:.6f} rgb/{s:.6f}.png" for s in stamps) + "\n"
+    )
+    (tmp_path / "groundtruth.txt").write_text(
+        "# ground truth\n" + "\n".join(f"{s:.4f} {i} 0 0 0 0 0 1" for i, s in enumerate(stamps)) + "\n"
+    )
+    (tmp_path / "K.txt").write_text("500 501 320 240\n")
+    ours, ref = ttum.TumSequence(tmp_path), jtum.TumSequence(tmp_path)
+    assert len(ours) == len(ref) == 4
+    assert np.array_equal(ours.camera_intrinsics(), ref.camera_intrinsics())
+    assert np.array_equal(ours.camera_intrinsics(tmp_path / "K.txt"), ref.camera_intrinsics(tmp_path / "K.txt"))
+    got = _packets(ours.iter_frames())
+    assert got == _packets(ref.iter_frames()) and got[1][2] == frames[1].tolist()  # grey RGB decodes exactly
+    for a, b in zip(ours.ground_truth(), ref.ground_truth()):
+        assert np.array_equal(a, b)
+    assert tvalidation.validate_tum(tmp_path).to_dict() == jvalidation.validate_tum(tmp_path).to_dict()
+    (tmp_path / "rgb.txt").unlink()
+    assert [(e.index, e.timestamp, e.path) for e in ttum.TumSequence(tmp_path).entries] == [
+        (e.index, e.timestamp, e.path) for e in jtum.TumSequence(tmp_path).entries
+    ]

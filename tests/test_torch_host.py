@@ -215,11 +215,21 @@ def test_frame_stream_equals_reference(tmp_path):
     assert ring.push(1) and ring.push(2) and not ring.push(3) and ring.dropped == 1 and ring.pop() == 2
 
 
-def test_frame_stream_needs_a_reader():
-    """The default decoder is not ported: no reader is a refusal, not a
-    stream of silent read failures."""
-    with pytest.raises(NotImplementedError, match="step 14"):
-        tfs.FrameStream([Path("x.png")])
+def test_frame_stream_needs_a_reader(tmp_path):
+    """The port has its own default decoder now: no reader is no refusal.
+    A missing file is a counted read failure, and a format the decoder
+    cannot read raises with the format's name."""
+    from mvslam_tpu_torch.data.synthetic import write_png_gray
+
+    img = np.arange(35, dtype=np.uint8).reshape(5, 7)
+    write_png_gray(tmp_path / "0.png", img)
+    stream = tfs.FrameStream([tmp_path / "0.png", tmp_path / "missing.png"])
+    assert stream.read_fn is tfs._default_read_fn
+    packets = list(stream)
+    assert len(packets) == 1 and np.array_equal(packets[0].frame, img) and stream.stats.read_failures == 1
+    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not decoded here")
+    with pytest.raises(ValueError, match="jpg"):
+        tfs._default_read_fn(tmp_path / "x.jpg")
 
 
 def test_host_modules_import_without_jax():
@@ -228,7 +238,10 @@ def test_host_modules_import_without_jax():
         "mvslam_tpu_torch.data.synthetic, mvslam_tpu_torch.runtime.frame_stream, "
         "mvslam_tpu_torch.backend.bundle_adjustment, mvslam_tpu_torch.backend.pose_graph, "
         "mvslam_tpu_torch.backend.optimization_control, mvslam_tpu_torch.geometry.lie_np, "
-        "mvslam_tpu_torch.geometry.alignment; "
+        "mvslam_tpu_torch.geometry.alignment, mvslam_tpu_torch.loopclosure, mvslam_tpu_torch.loopclosure.validation, "
+        "mvslam_tpu_torch.slam.offline, mvslam_tpu_torch.slam.runner, mvslam_tpu_torch.slam.relocalization_demo, "
+        "mvslam_tpu_torch.data.kitti, mvslam_tpu_torch.data.tum, mvslam_tpu_torch.data.validation, "
+        "mvslam_tpu_torch.data.camera_rig, mvslam_tpu_torch.eval.relocalization_metrics; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mvslam_tpu.'))]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -267,4 +280,39 @@ def test_chip_smoke_imports_nothing_of_the_reference():
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
     assert "mvslam_tpu_torch.data.bench_frames" in names
-    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "mvslam_tpu", "bench")], names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "mvslam_tpu", "bench", "PIL", "cv2")], names
+
+
+def _imports(path):
+    """(module-level imports, every import) of a source file, by name."""
+    tree = ast.parse(path.read_text())
+
+    def names(nodes):
+        out = set()
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                out.update(alias.name for alias in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                out.add(node.module or "")
+        return out
+
+    return names(tree.body), names(ast.walk(tree))
+
+
+def test_no_module_of_the_port_imports_the_reference_or_an_image_library():
+    """Every source file of the port: no import of jax, ``mvslam_tpu`` or
+    ``bench`` anywhere, and none of ``PIL`` or ``cv2`` at module level
+    (the machine with the card is promised neither: the port decodes PNG
+    and PGM itself). ``cv2`` stays a lazy import where the reference has
+    one too (video input, seeding its RNG); ``PIL`` appears nowhere."""
+    files = sorted((REPO / "mvslam_tpu_torch").rglob("*.py"))
+    assert len(files) > 60
+    lazy_cv2 = set()
+    for path in files:
+        top, every = _imports(path)
+        rel = str(path.relative_to(REPO))
+        assert not [n for n in every if n.split(".")[0] in ("jax", "jaxlib", "mvslam_tpu", "bench", "PIL")], rel
+        assert not [n for n in top if n.split(".")[0] == "cv2"], rel
+        if any(n.split(".")[0] == "cv2" for n in every):
+            lazy_cv2.add(rel)
+    assert lazy_cv2 == {"mvslam_tpu_torch/core/determinism.py", "mvslam_tpu_torch/slam/offline.py"}

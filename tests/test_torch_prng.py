@@ -62,3 +62,34 @@ def test_uniform_batched_keys_equal_per_key_draws():
     for i in range(4):
         ref = np.asarray(jax.random.uniform(jax.random.fold_in(jax.random.key(3), i), (8, 16)))
         assert np.array_equal(batched[i], ref)
+
+
+@pytest.mark.parametrize("n,k", [(300, 64), (5000, 256), (4097, 8)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_topk_index_set_equals_jax(seed, n, k):
+    """As bow.py's ``_lloyd`` picks its initial centroids: the uniform bits
+    are equal, ``log`` may differ from XLA's in the last place (values
+    within 1e-6), and the top-k index list, ranked with the stable top-k,
+    is the reference's."""
+    from mvslam_tpu_torch.ops.fast import topk_stable
+
+    ref = jax.random.gumbel(jax.random.key(seed), (n,))
+    got = prng.gumbel(prng.key(seed), (n,))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(to_np(got), np.asarray(ref), atol=1e-6, rtol=0)
+    ref_idx = np.asarray(jax.lax.top_k(ref, k)[1])
+    assert np.array_equal(to_np(topk_stable(got, k)[1]), ref_idx)
+
+
+@pytest.mark.parametrize(
+    "lo,hi,shape",
+    [(0, 2**31 - 1, ()), (0, 10, (5,)), (-5, 70000, (3, 4)), (3, 65536, (7,)), (0, 65537, (9,)), (4, 4, (3,))],
+)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_equals_jax(seed, lo, hi, shape):
+    """As map_builder.py draws its numpy seed (``randint(key, (), 0,
+    2**31 - 1)``), and at spans on both sides of 2**16, where the wrapping
+    multiplier changes."""
+    ref = np.asarray(jax.random.randint(jax.random.key(seed), shape, lo, hi))
+    got = to_np(prng.randint(prng.key(seed), shape, lo, hi))
+    assert got.shape == ref.shape and np.array_equal(got, ref)

@@ -257,19 +257,18 @@ def test_api_dataclasses_equal_reference(ours, ref):
     [("enable_local_ba", "step 11"), ("enable_relocalization", "step 12"), ("persist_map_snapshot", "step 12")],
 )
 def test_unported_stages_are_refused(tmp_path, flag, step):
-    """Each stage by the ROADMAP step that brings it: step 11 (window BA)
-    is ported and taken; the stages of step 12 are refused before any
-    artifact is written."""
+    """Each stage by the ROADMAP step that brought it: steps 11 (window BA)
+    and 12 (relocalization, map snapshots) are ported, so no flag is
+    refused any more and the default configuration constructs."""
     cfg = _config(tapi, (200.0, 200.0, 160.0, 120.0), tmp_path, "per_frame")
+    system = tapi.SLAMSystem(dataclasses.replace(cfg, **{flag: True}), device="cpu")
+    assert getattr(system.config, flag) is True
     if step == "step 11":
-        system = tapi.SLAMSystem(dataclasses.replace(cfg, **{flag: True}), device="cpu")
         assert system._local_ba is not None and system.keyframes._on_window == system._on_keyframe_window
-        return
-    with pytest.raises(NotImplementedError, match=step):
-        tapi.SLAMSystem(dataclasses.replace(cfg, **{flag: True}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tapi.SLAMSystem(tapi.SLAMSystemConfig(output_root=tmp_path), device="cpu")
-    assert not list(tmp_path.iterdir())  # refused before any artifact
+    assert not hasattr(tapi, "_NOT_PORTED")
+    default = tapi.SLAMSystem(tapi.SLAMSystemConfig(output_root=tmp_path), device="cpu")
+    assert default.config.enable_relocalization and default.config.persist_map_snapshot
+    assert default._relocalizer is None and default._map_snapshot is None  # built on demand
 
 
 def test_device_is_explicit(tmp_path):

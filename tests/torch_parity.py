@@ -59,3 +59,36 @@ def random_descriptors(n, seed=0, duplicate_every=0) -> np.ndarray:
         rows = np.arange(duplicate_every, n, duplicate_every)
         d[rows] = d[rows - 1]
     return d
+
+
+def to_port_keyframes(keyframes):
+    """The JAX package's ``MapKeyframe``/``Keyframe`` objects as the port's
+    ``MapKeyframe``, through plain numpy copies of their arrays."""
+    from mvslam_tpu_torch.loopclosure.persistent_map import MapKeyframe
+
+    return [
+        MapKeyframe(
+            frame_id=int(kf.frame_id),
+            pose=np.array(kf.pose, dtype=np.float64),
+            keypoints=np.array(kf.keypoints, dtype=np.float32),
+            descriptors=np.array(kf.descriptors, dtype=np.uint32),
+            valid=np.array(kf.valid, dtype=bool),
+        )
+        for kf in keyframes
+    ]
+
+
+def to_port_snapshot(snapshot):
+    """The JAX package's ``PersistentMapSnapshot`` as the port's: the same
+    keyframes, vocabulary, histograms and frame ids, so both packages
+    relocalize against one map (and compute one digest)."""
+    from mvslam_tpu_torch.loopclosure.persistent_map import PersistentMapSnapshot
+
+    return PersistentMapSnapshot(
+        keyframes=to_port_keyframes(snapshot.keyframes),
+        vocabulary=np.array(snapshot.vocabulary),
+        histograms=np.array(snapshot.histograms),
+        frame_ids=np.array(snapshot.frame_ids),
+        schema_version=int(snapshot.schema_version),
+        metadata=dict(snapshot.metadata),
+    )
