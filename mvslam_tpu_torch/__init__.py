@@ -13,7 +13,10 @@ pyramidal Lucas-Kanade (``ops.lk``), the back end (``geometry.lie``,
 optimization supervisor and window bundle adjustment, which ``SLAMSystem``
 runs by default), and the numpy host modules these use (``core``,
 ``backend.keyframes``, ``runtime.frame_stream``, ``eval``,
-``data.synthetic``). The two Pallas kernels of the reference run as
+``data.synthetic``), and the live control-plane path
+(``SLAMSystem.run_stream_async`` over ``runtime``'s feature and tracking
+planes, the async ingestion pipeline, the hub, supervisor and failure
+injection) with the front-end facades (``frontend``). The two Pallas kernels of the reference run as
 hand-written CUDA kernels (``csrc/``) on CUDA tensors; CPU tensors take
 each kernel's plain PyTorch version.
 """

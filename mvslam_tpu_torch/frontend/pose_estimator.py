@@ -1,18 +1,20 @@
 """Robust dual-model relative pose estimation with stability gates.
 
-Port of the tracking step's part of ``mvslam_tpu/frontend/pose_estimator.py``:
-an essential-matrix and a homography candidate per frame pair (one fused
-RANSAC chain), both decompositions, parallax and cheirality statistics,
-and the support-share model selection, all batched over leading axes
-(the frame pairs of a window). The host applies the stability gates.
+Port of ``mvslam_tpu/frontend/pose_estimator.py``: an essential-matrix
+and a homography candidate per frame pair (one fused RANSAC chain), both
+decompositions, parallax and cheirality statistics, and the support-share
+model selection, all batched over leading axes (the frame pairs of a
+window). The host applies the stability gates; :class:`RobustPoseEstimator`
+is the host facade for one pair, returning a :class:`PoseEstimate`.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mvslam_tpu_torch.core import prng
@@ -67,6 +69,21 @@ class PoseEstimationFailure(Exception):
         self.reason = reason
         self.recovery_action = recovery_action
         self.metrics = dict(metrics or {})
+
+
+@dataclass(frozen=True)
+class PoseEstimate:
+    """Host-side result of a successful estimation."""
+
+    rotation: np.ndarray  # (3, 3)
+    translation: np.ndarray  # (3,) unit norm
+    model_type: str  # "essential" | "homography"
+    num_inliers: int
+    inlier_ratio: float
+    median_parallax_deg: float
+    cheirality_ratio: float
+    score: float
+    inlier_mask: np.ndarray = field(repr=False, default=None)
 
 
 class DevicePoseResult(NamedTuple):
@@ -260,3 +277,56 @@ def apply_stability_gates(config: RobustPoseEstimatorConfig, metrics: Dict) -> N
         raise PoseEstimationFailure("low_parallax", metrics=metrics)
     if metrics.get("cheirality_ratio", 0.0) < config.min_cheirality_ratio:
         raise PoseEstimationFailure("low_cheirality", metrics=metrics)
+
+
+class RobustPoseEstimator:
+    """Host facade on ``device`` (default ``"cuda"``): the fused dual-model
+    estimate of one frame pair, then the stability gates."""
+
+    def __init__(self, config: Optional[RobustPoseEstimatorConfig] = None, device="cuda") -> None:
+        self.config = config or RobustPoseEstimatorConfig()
+        self.device = torch.device(device)
+
+    def estimate_pose(self, pts1_px, pts2_px, mask, K, key) -> PoseEstimate:
+        """(N, 2) pixel points of each frame, (N,) mask, (3, 3) K and a (2,)
+        key, arrays or tensors, moved to the estimator's device. Raises
+        :class:`PoseEstimationFailure` when a gate trips."""
+        cfg = self.config
+        device = self.device
+        pts1_px = torch.as_tensor(pts1_px, dtype=torch.float32, device=device)
+        pts2_px = torch.as_tensor(pts2_px, dtype=torch.float32, device=device)
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=device)
+        num_matches = int(mask.sum())
+        if num_matches < cfg.min_matches:
+            raise PoseEstimationFailure(
+                "insufficient_matches",
+                metrics={"num_matches": num_matches, "min_matches": cfg.min_matches},
+            )
+        K = torch.as_tensor(K, dtype=torch.float32, device=device)
+        key = torch.as_tensor(key, dtype=torch.int64, device=device)
+        dev = estimate_pose_device(key[None], pts1_px[None], pts2_px[None], mask[None], K, cfg)
+        dev = DevicePoseResult(*(a[0] for a in dev))
+        metrics = {
+            "num_matches": num_matches,
+            "num_inliers": int(dev.num_inliers),
+            "inlier_ratio": float(dev.inlier_ratio),
+            "median_parallax_deg": float(dev.median_parallax_deg),
+            "cheirality_ratio": float(dev.cheirality_ratio),
+            "score": float(dev.score),
+            "essential_score": float(dev.essential_score),
+            "homography_score": float(dev.homography_score),
+            "model_type": "essential" if bool(dev.use_essential) else "homography",
+            "median_displacement_px": float(dev.median_displacement_px),
+        }
+        apply_stability_gates(cfg, metrics)
+        return PoseEstimate(
+            rotation=dev.rotation.cpu().numpy(),
+            translation=dev.translation.cpu().numpy(),
+            model_type=metrics["model_type"],
+            num_inliers=metrics["num_inliers"],
+            inlier_ratio=metrics["inlier_ratio"],
+            median_parallax_deg=metrics["median_parallax_deg"],
+            cheirality_ratio=metrics["cheirality_ratio"],
+            score=metrics["score"],
+            inlier_mask=dev.inliers.cpu().numpy(),
+        )

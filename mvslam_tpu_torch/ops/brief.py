@@ -126,9 +126,15 @@ def extract_patches(image: torch.Tensor, xy: torch.Tensor, out_dtype=None) -> to
 
 def orientations_from_patches(patches: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angle per patch: atan2(m01, m10), from bf16
-    patches and moments with f32 accumulation."""
+    patches and the moment weights.
+
+    The sums run in float64, where every product of a bf16 pixel and an
+    integer weight and, for the blurred 8-bit frames of the tracker, every
+    partial sum is exact: each moment is its exactly rounded float32 value
+    whatever order the product sums in, so a frame gets the same angles in
+    any batch (a float32 product sums in an order that its shape selects)."""
     moments, _ = _tables(patches.device)
-    m = patches.to(torch.bfloat16).to(torch.float32) @ moments.to(torch.float32)
+    m = (patches.to(torch.bfloat16).to(torch.float64) @ moments.to(torch.float64)).to(torch.float32)
     angle = torch.atan2(m[..., 1], m[..., 0])
     return torch.where(valid, angle, torch.zeros((), dtype=angle.dtype, device=angle.device))
 

@@ -14,6 +14,7 @@ circularly. Both agree under the border mask when ``margin >= 4``.
 from __future__ import annotations
 
 import collections
+import threading
 from typing import Tuple
 
 import torch
@@ -64,10 +65,13 @@ def fast_detect(image: torch.Tensor, threshold: float, margin: int = 19) -> Tupl
             image.data_ptr(), det.data_ptr(), raw.data_ptr(), b, h, w, thr, int(margin), stream
         )
     cuda_build.check(err, name)
-    fast_detect.launches += 1
-    fast_detect.launch_shapes[(str(image.dtype), b, h, w)] += 1
+    with _LAUNCH_LOCK:
+        fast_detect.launches += 1
+        fast_detect.launch_shapes[(str(image.dtype), b, h, w)] += 1
     return det, raw
 
 
+# Launches come from any thread (the feature plane's assembler among them).
+_LAUNCH_LOCK = threading.Lock()
 fast_detect.launches = 0  # kernel launches (plain-version calls do not count)
 fast_detect.launch_shapes = collections.Counter()  # the same launches by (dtype, B, H, W)

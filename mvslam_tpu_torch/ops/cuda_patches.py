@@ -11,6 +11,7 @@ against which the kernel is checked on the card.
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
@@ -77,10 +78,13 @@ def extract_patches(image: torch.Tensor, xy: torch.Tensor, out_dtype=None) -> to
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(image.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n, stream)
     cuda_build.check(err, name)
-    extract_patches.launches += 1
-    extract_patches.launch_shapes[(str(out_dtype), b, h, w, n)] += 1
+    with _LAUNCH_LOCK:
+        extract_patches.launches += 1
+        extract_patches.launch_shapes[(str(out_dtype), b, h, w, n)] += 1
     return out
 
 
+# Launches come from any thread (the feature plane's assembler among them).
+_LAUNCH_LOCK = threading.Lock()
 extract_patches.launches = 0  # kernel launches (plain-version calls do not count)
 extract_patches.launch_shapes = collections.Counter()  # the same launches by (output dtype, B, H, W, N)

@@ -1,1 +1,3 @@
-"""Host runtime: frame ingestion (port of ``mvslam_tpu/runtime``)."""
+"""Host runtime: frame ingestion, the async decode pipeline, the feature
+and tracking control planes, the hub, supervisor and failure injection
+(port of ``mvslam_tpu/runtime``)."""

@@ -13,7 +13,9 @@ moves to the CPU on its own; windowed bundle adjustment over each keyframe
 window (``enable_local_ba``, on by default) runs there too, as do
 relocalization after a tracking loss (``enable_relocalization``) and the
 map snapshot's vocabulary and histograms (``persist_map_snapshot``): the
-default configuration runs whole.
+default configuration runs whole. ``run_stream_async`` is the live path:
+batched extraction on a feature control plane's thread, ordered tracking
+behind a tracking control plane (``runtime/``).
 """
 
 from __future__ import annotations
@@ -623,6 +625,112 @@ class SLAMSystem:
         return self._run_windowed(
             ((p.frame, p.timestamp) for p in packets), window, windows_per_dispatch, on_frame
         )
+
+    def run_stream_async(
+        self,
+        packets: Iterable[FramePacket],
+        feature_control_config=None,
+        tracking_control_config=None,
+    ) -> List[FrameDiagnostics]:
+        """Control-plane path: async feature extraction + ordered tracking.
+
+        Frames enter a ``TrackingControlPlane`` (TTLs, drop policy, breaker)
+        in front of a ``FeatureControlPlane`` that extracts them in batches
+        on this system's device, on its assembler thread. The ordered
+        results go one frame at a time through ``match_and_estimate`` under
+        ``fold_in(tracking key, frame id)``, the key ``process_frame`` uses,
+        so both paths give one trajectory. On close a ``ControlPlaneHub``
+        report of both planes is saved as ``control_plane_report``.
+        """
+        from mvslam_tpu_torch.runtime.feature_plane import FeatureControlPlane
+        from mvslam_tpu_torch.runtime.hub import ControlPlaneHub, ControlPlaneStageAdapter
+        from mvslam_tpu_torch.runtime.tracking_plane import TrackingControlPlane
+        from mvslam_tpu_torch.slam.tracking import feature_set_from_arrays
+
+        feature_plane = FeatureControlPlane(self.config.feature, feature_control_config, device=self.device)
+        control_plane = TrackingControlPlane(feature_plane, tracking_control_config)
+        diags: List[FrameDiagnostics] = []
+        prev_fs = self._prev_features
+
+        def handle(result) -> None:
+            nonlocal prev_fs
+            frame_id = result.seq_id
+            timestamp = float(result.timestamp)
+            diag = FrameDiagnostics(
+                frame_id=frame_id,
+                timestamp=timestamp,
+                correlation_id=self.correlations.correlation_id("frame_process"),
+            )
+            if not result.ok:
+                self._failure_count += 1
+                diag.pose_success = False
+                diag.failure_reason = result.drop_reason or "feature_error"
+                self.trajectory.append(frame_id, timestamp, self._pose)
+                self.diagnostics.append(diag)
+                diags.append(diag)
+                return
+            fr = result.feature_result
+            cur_fs = feature_set_from_arrays(fr.keypoints, fr.descriptors, fr.valid, device=self.device)
+            host_provider = lambda fr=fr: (fr.keypoints, fr.descriptors, fr.valid)
+            if prev_fs is None:
+                diag.num_features = fr.num_features
+                diag.pose_success = True
+                diag.model_type = "bootstrap"
+                prev_fs = cur_fs
+                self._prev_features = cur_fs
+                self._record_frame(frame_id, timestamp, diag, 1.0, host_provider)
+                diags.append(diag)
+                return
+            key = prng.fold_in(self._track_key, frame_id)
+            with timed_event(self.telemetry, "track_step", metadata={"frame_id": frame_id}):
+                track = match_and_estimate(
+                    key, prev_fs, cur_fs, self._K_dev, self.config.feature, self.config.pose
+                )
+                scalars = pull_scalars(track)
+            prev_fs = cur_fs
+            self._prev_features = cur_fs
+            self._handle_tracked_frame(frame_id, timestamp, diag, scalars, host_provider)
+            diags.append(diag)
+
+        def warm(frame: np.ndarray) -> None:
+            # Build the kernels and run extraction and match+pose once
+            # BEFORE any frame enters the pending buffer: the first build
+            # takes seconds and would otherwise tick against every queued
+            # frame's TTL, expiring the stream as ``deadline_expired``.
+            feature_plane.warmup(frame)
+            fs = bootstrap_frame(torch.from_numpy(np.array(frame)).to(self.device), self.config.feature)
+            match_and_estimate(self._track_key, fs, fs, self._K_dev, self.config.feature, self.config.pose)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        warmed = False
+        try:
+            for packet in packets:
+                frame = np.asarray(packet.frame)
+                if not warmed:
+                    warm(frame)
+                    warmed = True
+                frame_id = self._frame_count
+                self._frame_count += 1
+                control_plane.submit_frame(frame_id, packet.timestamp, frame)
+                for result in control_plane.drain_ready():
+                    handle(result)
+            for result in control_plane.collect():
+                handle(result)
+        finally:
+            hub = ControlPlaneHub(
+                [
+                    ControlPlaneStageAdapter(
+                        "feature", feature_plane.health_snapshot, feature_plane.stage_events
+                    ),
+                    ControlPlaneStageAdapter(
+                        "tracking", control_plane.health_snapshot, control_plane.stage_events
+                    ),
+                ]
+            )
+            self.store.save_report("control_plane_report", hub.generate_report().to_dict())
+            feature_plane.close()
+        return diags
 
     # ------------------------------------------------------------------
     # Finalization

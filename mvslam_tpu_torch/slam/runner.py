@@ -1,13 +1,13 @@
 """KITTI run CLI: dataset validation → config → SLAMSystem → artifacts.
 
 Port of ``mvslam_tpu/slam/runner.py``: ``run_kitti_sequence``, strict JSON
-pipeline-config loading with unknown-field rejection, sync / streaming
-ingestion selection, artifact finalization. ``run_kitti_sequence(...,
-device="cuda")`` and ``--device`` carry the device. The ``async`` and
-``native`` ingestion modes need the ``runtime`` ingestion pipeline and the
-C++ loader, which are not ported yet (ROADMAP step 14): the function raises
-``NotImplementedError`` for them, and the command line does not offer them
-or the decode-worker count that only they use. Entry point: ``python -m
+pipeline-config loading with unknown-field rejection, sync / streaming /
+async ingestion selection (``async``: the ``runtime.ingestion`` decode
+pipeline, whose failure report is saved as ``ingestion_report``), artifact
+finalization. ``run_kitti_sequence(..., device="cuda")`` and ``--device``
+carry the device. The ``native`` mode needs the C++ frame loader, which is
+not ported yet: the function raises ``NotImplementedError`` for it and the
+command line does not offer it. Entry point: ``python -m
 mvslam_tpu_torch.slam.runner``.
 """
 
@@ -30,6 +30,7 @@ from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
 from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
 from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
 from mvslam_tpu_torch.runtime.frame_stream import _default_read_fn
+from mvslam_tpu_torch.runtime.ingestion import AsyncIngestionPipeline, IngestionPipelineConfig
 from mvslam_tpu_torch.slam.api import SLAMRunResult, SLAMSystem, SLAMSystemConfig
 
 logger = logging.getLogger(__name__)
@@ -75,8 +76,9 @@ def run_kitti_sequence(
     seed: int = 0,
     max_frames: Optional[int] = None,
     config_path: Optional[Path] = None,
-    ingestion: str = "stream",  # "sync" | "stream"
+    ingestion: str = "stream",  # "sync" | "stream" | "async"
     buffer_size: int = 8,
+    num_decode_workers: int = 2,
     validate: bool = True,
     inject_loss_at: Optional[int] = None,
     window: int = 8,
@@ -85,12 +87,12 @@ def run_kitti_sequence(
 ) -> SLAMRunResult:
     """Validate the dataset, run the sequence on ``device``, persist the
     artifacts."""
-    if ingestion in ("async", "native"):
+    if ingestion == "native":
         raise NotImplementedError(
-            f"ingestion mode {ingestion!r} needs the runtime ingestion pipeline / the C++ frame "
-            "loader, which come with ROADMAP step 14; use 'sync' or 'stream'"
+            "ingestion mode 'native' needs the C++ frame loader, which is not ported yet; "
+            "use 'sync', 'stream' or 'async'"
         )
-    if ingestion not in ("sync", "stream"):
+    if ingestion not in ("sync", "stream", "async"):
         raise ValueError(f"unknown ingestion mode {ingestion!r}")
     if validate:
         result = validate_kitti(dataset_root, sequence, camera)
@@ -125,12 +127,21 @@ def run_kitti_sequence(
                 frames.append(np.asarray(frame))
                 timestamps.append(e.timestamp)
         system.run_sequence(frames, timestamps, window=window, windows_per_dispatch=windows_per_dispatch)
-    else:
+    elif ingestion == "stream":
         system.run_stream(
             seq.iter_frames(max_frames, buffer_size=buffer_size),
             window=window,
             windows_per_dispatch=windows_per_dispatch,
         )
+    else:
+        entries = seq.frame_entries(max_frames)
+        pipeline = AsyncIngestionPipeline(
+            [e.path for e in entries],
+            timestamps=[e.timestamp for e in entries],
+            config=IngestionPipelineConfig(num_workers=num_decode_workers, queue_capacity=buffer_size),
+        )
+        system.run_stream(pipeline, window=window, windows_per_dispatch=windows_per_dispatch)
+        system.store.save_report("ingestion_report", pipeline.failure_report().to_dict())
     return system.finalize_run()
 
 
@@ -144,8 +155,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--config", type=Path, default=None, help="pipeline config JSON")
-    parser.add_argument("--ingestion", choices=["sync", "stream"], default="stream")
+    parser.add_argument("--ingestion", choices=["sync", "stream", "async"], default="stream")
     parser.add_argument("--buffer-size", type=int, default=8)
+    parser.add_argument("--decode-workers", type=int, default=2)
     parser.add_argument("--device", default="cuda", help="torch device of every stage (cuda, cpu)")
     parser.add_argument("--window", type=int, default=8, help="frames per tracking call")
     parser.add_argument(
@@ -170,6 +182,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         config_path=args.config,
         ingestion=args.ingestion,
         buffer_size=args.buffer_size,
+        num_decode_workers=args.decode_workers,
         validate=not args.no_validate,
         inject_loss_at=args.inject_loss_at,
         window=args.window,

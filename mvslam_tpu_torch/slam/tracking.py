@@ -255,9 +255,10 @@ def match_and_estimate(
     return _index(track, 0)
 
 
-def feature_set_from_arrays(xy, descriptors, valid, device=None) -> FeatureSet:
+def feature_set_from_arrays(xy, descriptors, valid, *, device) -> FeatureSet:
     """Host arrays ``(xy (N, 2), descriptors (N, 8) uint32, valid (N,))`` →
-    a FeatureSet on ``device``, descriptor words reinterpreted as int32."""
+    a FeatureSet on ``device`` (no default: the caller names the device its
+    tracking runs on), descriptor words reinterpreted as int32."""
     n = len(valid)
     words = np.ascontiguousarray(descriptors, dtype=np.uint32).view(np.int32)
     return FeatureSet(

@@ -160,3 +160,62 @@ def test_detect_and_describe_too_small_image_is_all_invalid():
         torch.zeros((2, 30, 30)), 16, tfast.FastConfig(), tbrief.BriefConfig()
     )
     assert xy.shape == (2, 16, 2) and desc.shape == (2, 16, 8) and not valid.any()
+
+
+def test_offline_scene_blur_rounding_flips_one_descriptor_bit():
+    """Frame 0 of the offline benchmark's out-and-back scene (1226x370,
+    400 quads, noise 6, seed 2, as ``chip_smoke.py::offline_scene`` writes
+    it): the one descriptor bit in which the packages differ there.
+
+    Inside a jitted program XLA:CPU contracts the blur's multiply-adds into
+    fused multiply-adds (an order that the compiler chooses per fused
+    loop; op by op it rounds as the port does), where the port,
+    on either device, rounds each product and each sum as written: a third
+    of the blurred pixels differ by 1-4 ulp. Rounded to bf16 (the
+    descriptor's pixel type) only two differ, one of them a tie: 142.5 in
+    the port rounds to even (142), 142.500015 in the reference up (143).
+    That pixel lies in keypoint 1995's patch and flips one comparison, so
+    one of 2048 descriptors differs by one bit. No port reproduces the
+    compiler's contraction, so the count, not equality, is pinned."""
+    from mvslam_tpu.data.synthetic import render_scene
+    from mvslam_tpu.slam import tracking as jtrack
+    from mvslam_tpu.frontend.feature_pipeline import FeaturePipelineConfig as JFC
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.slam import tracking as ttrack
+
+    frames, *_ = render_scene(num_frames=1, h=370, w=1226, seed=2, n_pts=400, noise=6.0,
+                              traj_fn=lambda i: (np.eye(3), np.zeros(3)))
+    frame = np.asarray(frames[0]).astype(np.uint8)
+    gray = frame.astype(np.float32)
+
+    import jax
+
+    ours = to_np(timage.gaussian_blur(t(gray), sigma=2.0, radius=4))
+    # Op by op, the reference rounds as the port does; fused under jit (as
+    # inside its tracking step) it does not.
+    assert np.array_equal(np.asarray(jimage.gaussian_blur(jnp.asarray(gray), sigma=2.0, radius=4)), ours)
+    ref = np.asarray(jax.jit(lambda g: jimage.gaussian_blur(g, sigma=2.0, radius=4))(jnp.asarray(gray)))
+    # The port: each product and sum rounded in the written order.
+    k, plain = timage._gaussian_kernel(2.0, 4), gray
+    for axis in (0, 1):
+        acc = np.float32(k[4]) * plain
+        for i in range(1, 5):
+            acc = acc + np.float32(k[4 + i]) * np.roll(plain, -i, axis=axis)
+            acc = acc + np.float32(k[4 - i]) * np.roll(plain, i, axis=axis)
+        plain = acc
+    assert np.array_equal(ours, plain)
+    ulps = np.abs(ours.view(np.int32).astype(np.int64) - ref.view(np.int32))
+    assert 0.25 < (ulps > 0).mean() < 0.45 and ulps.max() <= 4
+    bf = lambda a: to_np(torch.from_numpy(a).to(torch.bfloat16).float())  # noqa: E731
+    assert (bf(ours) != bf(ref)).sum() == 2
+    assert ours[292, 743] == np.float32(142.5) and ref[292, 743] == np.nextafter(np.float32(142.5), np.float32(143))
+    assert bf(ours)[292, 743] == 142.0 and bf(ref)[292, 743] == 143.0
+
+    fs = ttrack.bootstrap_frame(t(frame), FeaturePipelineConfig())
+    jfs = jtrack.bootstrap_frame(jnp.asarray(frame), JFC())
+    assert np.array_equal(to_np(fs.valid), np.asarray(jfs.valid)) and np.array_equal(to_np(fs.xy), np.asarray(jfs.xy))
+    desc, jdesc = desc_u32(fs.descriptors), np.asarray(jfs.descriptors)
+    rows = np.nonzero((desc != jdesc).any(axis=1))[0]
+    assert rows.tolist() == [1995]
+    assert np.unpackbits((desc[1995] ^ jdesc[1995]).view(np.uint8)).sum() == 1
+    np.testing.assert_allclose(to_np(fs.xy)[1995], [743.0285, 290.95746], atol=1e-4)

@@ -442,3 +442,107 @@ def test_loop_geometry_on_the_card_matches_the_cpu(cuda):
         if verdicts["card"] is not None:
             assert angle(verdicts["card"][0][:3, :3], verdicts["cpu"][0][:3, :3]) < 0.1
             assert angle(verdicts["card"][0][:3, :3], np.eye(3)) < 0.5  # the drive does not turn
+
+
+def test_feature_pipeline_batch_on_the_card_equals_the_cpu(cuda):
+    """``FeaturePipeline.detect_and_describe_batch`` at (4, 370, 1226) uint8:
+    one launch of each kernel, keypoints, scores, validity and descriptor
+    words bit-equal to the same call on the CPU (plain versions), and each
+    frame of the batch bit-equal to that frame extracted alone."""
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipeline, FeaturePipelineConfig
+
+    frames = np.stack([f.astype(np.uint8) for f in make_frames(4)])
+    cfg = FeaturePipelineConfig()
+    card = FeaturePipeline(cfg, device=cuda)
+    k1, k2 = cuda_fast.fast_detect.launches, cuda_patches.extract_patches.launches
+    got = card.detect_and_describe_batch(frames)
+    torch.cuda.synchronize()
+    assert (cuda_fast.fast_detect.launches - k1, cuda_patches.extract_patches.launches - k2) == (1, 1)
+    ref = FeaturePipeline(cfg, device="cpu").detect_and_describe_batch(frames)
+    for name in ("xy", "scores", "valid", "descriptors"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), name
+    torch.testing.assert_close(got.angles.cpu(), ref.angles, rtol=0, atol=1e-5)
+    assert int(got.valid.sum()) > 4 * 1500
+    alone = card.detect_and_describe(frames[2])
+    for a, b in zip(alone, got):
+        assert torch.equal(a, b[2])
+
+
+def test_pose_estimator_on_the_card_matches_the_cpu(cuda):
+    """``RobustPoseEstimator.estimate_pose`` at the bench configuration
+    (512 hypotheses) on numpy points of consecutive rendered 1226x370
+    frames: the default estimator runs on the card, repeats bit for bit,
+    and agrees with the same call on the CPU in success, model type,
+    inliers within the vote tolerance of near-tied hypotheses and R within
+    0.1 degrees; ``adaptive_ransac_threshold`` within 1e-6 relative."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.frontend.feature_pipeline import (
+        FeaturePipeline,
+        FeaturePipelineConfig,
+        adaptive_ransac_threshold,
+        matches_to_points,
+    )
+    from mvslam_tpu_torch.frontend.pose_estimator import PoseEstimationFailure, RobustPoseEstimator
+
+    frames, _, (fx, fy, cx, cy), _ = render_scene(num_frames=4, h=370, w=1226, seed=0)
+    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], np.float32)
+    pipeline = FeaturePipeline(FeaturePipelineConfig(num_features=2048, max_matches=512), device=cuda)
+    feats = pipeline.detect_and_describe_batch(np.stack(frames))
+    card, cpu = RobustPoseEstimator(), RobustPoseEstimator(device="cpu")
+    assert card.device.type == "cuda"
+
+    def estimate(est, *args):
+        try:
+            return est.estimate_pose(*args)
+        except PoseEstimationFailure as failure:
+            return failure.reason
+
+    def angle(Ra, Rb):
+        return float(np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1) / 2, -1, 1))))
+
+    poses = 0
+    for i in range(len(frames) - 1):
+        a, b = (type(feats)(*(x[j] for x in feats)) for j in (i, i + 1))
+        p1, p2, mask = (x.cpu().numpy() for x in matches_to_points(a, b, pipeline.match(a, b)))
+        args = (p1, p2, mask, K, prng.key(i))
+        got, again, ref = estimate(card, *args), estimate(card, *args), estimate(cpu, *args)
+        assert type(got) is type(ref), (got, ref)
+        if isinstance(got, str):
+            assert got == again == ref
+            continue
+        poses += 1
+        assert np.array_equal(got.rotation, again.rotation) and np.array_equal(got.inlier_mask, again.inlier_mask)
+        assert got.model_type == ref.model_type
+        assert abs(got.num_inliers - ref.num_inliers) <= max(3, 0.1 * ref.num_inliers)
+        assert angle(got.rotation, ref.rotation) < 0.1
+        assert adaptive_ransac_threshold(1.5, p1, p2, mask) == pytest.approx(
+            adaptive_ransac_threshold(1.5, p1, p2, mask, device="cpu"), rel=1e-6
+        )
+    assert poses >= 2
+
+
+def test_run_stream_async_on_the_card_equals_process_frame(cuda, tmp_path):
+    """``SLAMSystem.run_stream_async`` at the default configurations over
+    1 + 12 bench frames: the trajectory and diagnostics bit-equal to the
+    same frames through ``process_frame``, nothing dropped, both kernels
+    launched at batch 4 on the assembler thread."""
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.runtime.frame_stream import packets_from_arrays
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    frames = [f.astype(np.uint8) for f in make_frames(13)]
+    live = SLAMSystem(SLAMSystemConfig(run_id="async", output_root=tmp_path), device=cuda)
+    shapes_before = cuda_fast.fast_detect.launch_shapes[("torch.uint8", 4, 370, 1226)]
+    diags = live.run_stream_async(packets_from_arrays(frames))
+    assert cuda_fast.fast_detect.launch_shapes[("torch.uint8", 4, 370, 1226)] - shapes_before >= 4
+    single = SLAMSystem(SLAMSystemConfig(run_id="single", output_root=tmp_path), device=cuda)
+    single_diags = [single.process_frame(f, float(i)) for i, f in enumerate(frames)]
+    assert np.array_equal(np.stack(live.trajectory.poses), np.stack(single.trajectory.poses))
+    strip = lambda d: {k: v for k, v in d.to_dict().items() if k != "correlation_id"}  # noqa: E731
+    assert [strip(d) for d in diags] == [strip(d) for d in single_diags]
+    assert sum(d.pose_success for d in diags[1:]) >= 11
+    report = live.store.load_report("control_plane_report")
+    assert report["snapshots"]["feature"]["failed"] == 0 and report["snapshots"]["tracking"]["dropped"] == 0
+    assert not report["events"]

@@ -258,7 +258,9 @@ def test_pull_features_copies_each_buffer_once(runs, monkeypatch):
 def test_feature_set_from_arrays_round_trips_reference_words(runs):
     """The reference's uint32 words become the port's int32 words, bit for bit."""
     _, (jprev, _, _), (prev, _, _) = runs
-    fs = ttrack.feature_set_from_arrays(np.asarray(jprev.xy), np.asarray(jprev.descriptors), np.asarray(jprev.valid))
+    fs = ttrack.feature_set_from_arrays(
+        np.asarray(jprev.xy), np.asarray(jprev.descriptors), np.asarray(jprev.valid), device="cpu"
+    )
     assert fs.descriptors.dtype == torch.int32
     assert torch.equal(fs.descriptors, prev.descriptors)
     assert torch.equal(fs.valid, prev.valid) and torch.equal(fs.xy, prev.xy)
@@ -272,7 +274,9 @@ def test_match_and_estimate_equals_reference(runs):
     fc, pc = tfp.FeaturePipelineConfig(**FC), tpose.RobustPoseEstimatorConfig(**PC)
     jcur = jtrack.bootstrap_frame(jnp.asarray(frames[2]), jfc)
     jtr = jtrack.match_and_estimate(jax.random.key(4), jprev, jcur, jnp.asarray(K), jfc, jpc)
-    cur = ttrack.feature_set_from_arrays(np.asarray(jcur.xy), np.asarray(jcur.descriptors), np.asarray(jcur.valid))
+    cur = ttrack.feature_set_from_arrays(
+        np.asarray(jcur.xy), np.asarray(jcur.descriptors), np.asarray(jcur.valid), device="cpu"
+    )
     tr = ttrack.match_and_estimate(prng.key(4), prev, cur, t(K), fc, pc)
     assert np.array_equal(to_np(tr.match_mask), np.asarray(jtr.match_mask))
     assert np.abs(to_np(tr.matched_p2) - np.asarray(jtr.matched_p2)).max() <= 1e-6
