@@ -9,7 +9,9 @@ Phases, each printing one JSON line (any failure raises, exits non-zero
 and prints no ok line):
 
 1. device  — ``nvidia-smi`` name and power limit, torch's device name.
-2. build   — nvcc builds both CUDA kernels from ``mvslam_tpu_torch/csrc``.
+2. build   — nvcc builds both CUDA kernels from ``mvslam_tpu_torch/csrc``
+             while g++ builds the native host library from
+             ``mvslam_tpu_torch/native/src`` (forced, timed).
 3. K1      — ``fast_detect`` against its plain version on six inputs:
              16 bench frames (16, 370, 1226) uint8 and one (the main
              path's window and bootstrap), 16 frames of the slam phase's
@@ -123,7 +125,37 @@ and prints no ok line):
              ``AsyncIngestionPipeline`` with threads and with the process
              pool: packets in order and equal to the decoder's frames; ms
              per decoded frame.
-15. bow_index — ``DeviceBoWIndex`` with 50,000 seeded, L2-normalised
+15. native  — the native host library: its key and ``-march`` build, the
+             host's toolchain (g++, whether libpng's and zlib's headers
+             compile and link, ``-march=native``'s target); ``decode_gray``
+             bit-equal to the numpy decoder on the offline phase's 29 PNG
+             files, the same frames re-encoded with each filter type 1 to 4,
+             an RGB frame and a PGM; ms per frame of the numpy decoder and
+             ``decode_gray`` per filter type and of ``NativeFrameLoader``
+             with 1, 2 and 4 workers (in order, equal frames); the host
+             matcher bit-equal to the card's ``match_descriptors`` on two
+             bench frames' 2048 descriptors each (indices, best and second
+             distances, column-best, the cross-checked set); host ms beside
+             the card's CUDA-event and wall ms.
+16. native_ingest — the 29 PNG files through ``run_kitti_sequence`` with
+             ``ingestion="native"`` and ``"stream"`` (window 8):
+             trajectories and ``frame_diagnostics.json`` bit-equal, the
+             native ``ingestion_report`` with 29 decoded and 0 failed;
+             frames/s of both.
+17. eval    — the port's ``run_evaluation`` over both runs against the
+             scene's ground truth (ATE/RPE equal), ``execute_gate`` of the
+             native run against a baseline written from the stream run
+             (pass), ``score_run``, determinism validation of the two run
+             directories (equal but for the native ingestion report),
+             governance running the native run's evaluation as a budgeted
+             subprocess against the stream run's numbers, and the readiness
+             report with its digest.
+18. animate — ``run_visual_slam`` with ``enable_animation=True`` at the
+             offline phase's settings without loop closure: trajectory and
+             ``offline_summary.json`` bit-equal to the offline phase's run
+             without loops, the recorder holding the system's x/z once per
+             frame; whether matplotlib was there to draw.
+19. bow_index — ``DeviceBoWIndex`` with 50,000 seeded, L2-normalised
              histograms of a 256-word vocabulary (51 MB on the card), bulk
              loaded: 100 queries whose top-16 ids equal a float64 host
              ranking by (-score, frame id) wherever the host's scores
@@ -135,8 +167,9 @@ and prints no ok line):
              matvec's time.
 
 Kernel launches are counted per path: the counts are set to 0 just
-before each of main, slam, flow, slam_ba, offline, reloc, async_stream and
-async_ingest (its async run) and read just after (the pose-graph solver and the index run no hand kernel). The
+before each of main, slam, flow, slam_ba, offline, reloc, async_stream,
+async_ingest (its async run), native_ingest (its native run) and animate
+and read just after (the pose-graph solver and the index run no hand kernel). The
 wrappers also count their launches by shape, and the script fails if a path
 launched a kernel at a shape at which phases 3 to 5 did not hold it against
 its plain version. The wrappers count under a lock: in async_stream the
@@ -151,7 +184,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -191,6 +226,7 @@ OFFLINE_FRAMES = 1 + 28
 OFFLINE_LONG_FRAMES = 1 + 60
 OFFLINE_STEP = 0.25
 RELOC_LOSS_AT = 20
+NATIVE_LOADER_WORKERS = (1, 2, 4)
 # The async_stream phase: the slam scene's frames rounded to uint8, through
 # run_stream_async; the busy share is profiled over a shorter stretch.
 ASYNC_FRAMES = SCENE_FRAMES
@@ -337,13 +373,33 @@ def phase_device():
     })
 
 
-def phase_build() -> float:
-    from mvslam_tpu_torch.core import cuda_build
+NATIVE_BUILD = {}  # the native library's build, done beside nvcc, reported by phase_native
 
+
+def phase_build() -> float:
+    """nvcc builds the CUDA kernels while g++ builds the native host
+    library (forced, so its time is a real compile), both from the sources
+    in the checkout."""
+    import threading
+
+    from mvslam_tpu_torch.core import cuda_build
+    from mvslam_tpu_torch.native import build as native_build
+
+    def build_native():
+        t0 = time.perf_counter()
+        NATIVE_BUILD["path"] = native_build.build(force=True)
+        NATIVE_BUILD["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build_native, name="native-build")
     t0 = time.perf_counter()
+    thread.start()
     cuda_build.load()
     seconds = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": seconds, "library": str(cuda_build.build().relative_to(REPO))})
+    thread.join()
+    if NATIVE_BUILD.get("path") is None:
+        raise AssertionError("the native host library did not build (the compiler's stderr is logged above)")
+    emit({"phase": "build", "seconds": seconds, "library": str(cuda_build.build().relative_to(REPO)),
+          "native_library": str(NATIVE_BUILD["path"].relative_to(REPO)), "native_seconds": NATIVE_BUILD["seconds"]})
     return seconds
 
 
@@ -1029,6 +1085,19 @@ def edge_stats(edges) -> dict:
             "rotation_deg": {"median": statistics.median(angles), "max": max(angles)}}
 
 
+def offline_config(root, gt_path, run_id: str, **kw):
+    """The offline phase's ``SLAMRunConfig``: the offline benchmark's
+    settings (seed 3, loop gap 12, similarity 0.7, 25 inliers, ground
+    truth), all else default."""
+    from mvslam_tpu_torch.slam.offline import SLAMRunConfig
+
+    return SLAMRunConfig(
+        input_path=root, input_kind="kitti", sequence="00", output_root=REPO / "runs" / "chip_smoke", seed=3,
+        ground_truth_path=gt_path, loop_min_frame_gap=12, loop_similarity_threshold=0.7, loop_min_inliers=25,
+        run_id=run_id, **kw,
+    )
+
+
 def offline_runs(tag: str, num_frames: int, variants, dev):
     """``run_visual_slam`` over one scene, once per (name, loop closure)
     variant; kernel launches and peak memory are those of the first run."""
@@ -1036,7 +1105,7 @@ def offline_runs(tag: str, num_frames: int, variants, dev):
     import torch
 
     from mvslam_tpu_torch.slam import offline
-    from mvslam_tpu_torch.slam.offline import SLAMRunConfig, run_visual_slam
+    from mvslam_tpu_torch.slam.offline import run_visual_slam
 
     root, gt_path, render_s, write_s = offline_scene(tag, num_frames)
     # Every accepted loop edge of the first run beside what the scene says
@@ -1060,10 +1129,6 @@ def offline_runs(tag: str, num_frames: int, variants, dev):
                 "rotation_deg": float(np.degrees(np.arccos(np.clip((np.trace(out[0][:3, :3]) - 1) / 2, -1, 1)))),
             })
         return out
-    common = dict(
-        input_path=root, input_kind="kitti", sequence="00", output_root=REPO / "runs" / "chip_smoke", seed=3,
-        ground_truth_path=gt_path, loop_min_frame_gap=12, loop_similarity_threshold=0.7, loop_min_inliers=25,
-    )
     runs, tracked = {}, num_frames - 1
     for name, loops in variants:
         first = not runs
@@ -1074,7 +1139,7 @@ def offline_runs(tag: str, num_frames: int, variants, dev):
         t0 = time.perf_counter()
         with mock.patch.object(offline, "_verify_loop", recording_verify if first else verify_loop):
             summary = run_visual_slam(
-                SLAMRunConfig(run_id=f"smoke_offline_{tag}_{name}", enable_loop_closure=loops, **common), device=dev
+                offline_config(root, gt_path, f"smoke_offline_{tag}_{name}", enable_loop_closure=loops), device=dev
             )
         elapsed = time.perf_counter() - t0
         run_dir = Path(summary["run_dir"])
@@ -1150,7 +1215,7 @@ def phase_offline(dev, long_scene: bool):
         "long_scene": long_report and {**long_report, "ATE_gate": "reported, not gated"},
         "phase_seconds": time.perf_counter() - phase_t0,
     })
-    return first["launches"]
+    return first["launches"], runs["no_loops"]["run_dir"]
 
 
 def phase_reloc(scene, dev):
@@ -1342,6 +1407,7 @@ def phase_async_ingest(dev):
     import numpy as np
     import torch
 
+    from mvslam_tpu_torch.runtime import frame_stream
     from mvslam_tpu_torch.runtime.frame_stream import _default_read_fn
     from mvslam_tpu_torch.runtime.ingestion import AsyncIngestionPipeline, IngestionPipelineConfig
     from mvslam_tpu_torch.slam.runner import run_kitti_sequence
@@ -1387,7 +1453,373 @@ def phase_async_ingest(dev):
         "fps": {m: (OFFLINE_FRAMES - 1) / runs[m]["elapsed"] for m in runs},
         "ingestion_report": report, "bit_equal_to_stream": True,
         "decode_ms_per_frame": {"serial_decoder": serial_ms, **per_frame},
+        "default_decoder": "numpy" if frame_stream._native_decoder() is None else "native",
         "launches": launches, "phase_seconds": time.perf_counter() - phase_t0,
+    })
+    return launches
+
+
+def encode_png(img, filter_type: int) -> bytes:
+    """An 8-bit grey (H, W) or RGB (H, W, 3) PNG with one filter type on
+    every scanline, encoded in numpy (the filters read raw bytes only)."""
+    import zlib
+
+    import numpy as np
+
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, w * c).astype(np.int32)
+    up = np.vstack([np.zeros((1, w * c), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int32), x[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int32), up[:, :-c]])
+    if filter_type == 4:  # Paeth
+        pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    else:
+        pred = [np.zeros_like(x), left, up, (left + up) >> 1][filter_type]
+    raw = np.hstack([np.full((h, 1), filter_type), (x - pred) % 256]).astype(np.uint8)
+
+    def chunk(ctype, body):
+        return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", zlib.crc32(ctype + body))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def toolchain() -> dict:
+    """The host's C++ toolchain: the compiler, whether libpng's and zlib's
+    headers compile and their libraries link, and ``-march=native``'s
+    target (the native library needs zlib only)."""
+    def run(cmd, stdin=None):
+        return subprocess.run(cmd, input=stdin, capture_output=True, text=True, timeout=120)
+
+    work = REPO / "runs" / "chip_smoke" / "toolchain"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "png.cc").write_text(
+        "#include <png.h>\n#include <zlib.h>\n"
+        "int main() { return png_access_version_number() > 0 && zlibVersion()[0] ? 0 : 1; }\n")
+    (work / "zlib.cc").write_text("#include <zlib.h>\nint main() { return zlibVersion()[0] ? 0 : 1; }\n")
+    target = run(["g++", "-march=native", "-Q", "--help=target"]).stdout.splitlines()
+    flags = {f[0]: f[-1] for f in (line.split() for line in target) if len(f) >= 2}
+    return {
+        "g++": run(["g++", "--version"]).stdout.splitlines()[0],
+        "png_h": run(["g++", "-x", "c++", "-E", "-"], "#include <png.h>\n").returncode == 0,
+        "zlib_h": run(["g++", "-x", "c++", "-E", "-"], "#include <zlib.h>\n").returncode == 0,
+        "links_lpng_lz": run(["g++", str(work / "png.cc"), "-o", str(work / "png"), "-lpng", "-lz"]).returncode == 0,
+        "links_lz": run(["g++", str(work / "zlib.cc"), "-o", str(work / "zlib"), "-lz"]).returncode == 0,
+        "march_native": flags.get("-march="),
+        "avx512vpopcntdq": flags.get("-mavx512vpopcntdq"),
+    }
+
+
+def phase_native(dev):
+    """The native host library: its build, its decoder against the numpy
+    decoder on every file of a corpus (the offline scene's 29 PNGs, the same
+    frames with filter types 1 to 4, an RGB frame, a PGM), its frame loader
+    with 1, 2 and 4 workers, and its matcher against the card's on two
+    bench frames' descriptors."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch import native
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.native import build as native_build
+    from mvslam_tpu_torch.ops.hamming import (
+        MatchConfig, hamming_distance_matrix, match_descriptors, match_descriptors_host,
+    )
+    from mvslam_tpu_torch.runtime import frame_stream
+    from mvslam_tpu_torch.slam.tracking import bootstrap_frame
+
+    phase_t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("native: the library was built but does not load")
+    path = NATIVE_BUILD["path"]
+    march = "native" if path == native_build.library_path(native_build.NATIVE_ARCH) else "generic"
+
+    src = sorted((REPO / "runs" / "chip_smoke" / "offline_kitti_bench" / "sequences" / "00" / "image_0").glob("*.png"))
+    corpus = REPO / "runs" / "chip_smoke" / "native_corpus"
+    corpus.mkdir(parents=True, exist_ok=True)
+    pixels = [frame_stream.decode_png(p.read_bytes()) for p in src]
+    files = {0: src}
+    for ft in (1, 2, 3, 4):
+        files[ft] = [corpus / f"filter{ft}_{p.name}" for p in src]
+        for out, img in zip(files[ft], pixels):
+            out.write_bytes(encode_png(img, ft))
+    h, w = pixels[0].shape
+    rgb = np.stack([pixels[0], np.roll(pixels[0], 7, axis=1), 255 - pixels[0]], -1)
+    (corpus / "rgb.png").write_bytes(encode_png(rgb, 1))
+    (corpus / "frame.pgm").write_bytes(b"P5\n%d %d\n255\n" % (w, h) + pixels[1].tobytes())
+
+    def per_frame_ms(fn, items):
+        t0 = time.perf_counter()
+        out = [fn(x) for x in items]
+        return out, 1e3 * (time.perf_counter() - t0) / len(items)
+
+    numpy_ms, native_ms = {}, {}
+    for ft, paths in files.items():
+        ours, native_ms[ft] = per_frame_ms(native.decode_gray, paths)
+        ref, numpy_ms[ft] = per_frame_ms(lambda q: frame_stream.decode_png(q.read_bytes()), paths)
+        for q, a, b, img in zip(paths, ours, ref, pixels):
+            if a is None or not (np.array_equal(a, b) and np.array_equal(a, img)):
+                raise AssertionError(f"native: decode_gray differs from the numpy decoder on {q.name}")
+    for q, ref in ((corpus / "rgb.png", frame_stream.decode_png((corpus / "rgb.png").read_bytes())),
+                   (corpus / "frame.pgm", frame_stream.decode_pnm((corpus / "frame.pgm").read_bytes()))):
+        got = native.decode_gray(q)
+        if got is None or not np.array_equal(got, ref):
+            raise AssertionError(f"native: decode_gray differs from the numpy decoder on {q.name}")
+    loader_ms = {}
+    for workers in NATIVE_LOADER_WORKERS:
+        t0 = time.perf_counter()
+        with native.NativeFrameLoader(src, workers=workers, capacity=8) as loader:
+            items = list(loader)
+            stats = loader.stats()
+        loader_ms[workers] = 1e3 * (time.perf_counter() - t0) / len(src)
+        if [it.index for it in items] != list(range(len(src))) or stats.failed or not all(
+            np.array_equal(it.frame, img) for it, img in zip(items, pixels)
+        ):
+            raise AssertionError(f"native: the loader with {workers} workers delivered other frames")
+
+    # The matcher: two bench frames' descriptors from the card's detector.
+    cfg = FeaturePipelineConfig(num_features=NUM_FEATURES, max_matches=512)
+    a, b = (bootstrap_frame(torch.from_numpy(f.astype(np.uint8)).to(dev), cfg) for f in make_frames(2))
+    words = [np.ascontiguousarray(t.cpu().numpy()) for t in (a.descriptors, a.valid, b.descriptors, b.valid)]
+    host_in = (words[0].view(np.uint32), words[1], words[2].view(np.uint32), words[3])
+    best_idx, best, second, col_best = native.hamming_match(*host_in)
+    match_cfg = MatchConfig(cross_check=True)
+    res = match_descriptors(a.descriptors, a.valid, b.descriptors, b.valid, match_cfg)
+    d = hamming_distance_matrix(a.descriptors, b.descriptors)
+    d = torch.where(b.valid[None, :], d, torch.tensor(1e9, device=dev))
+    d = torch.where(a.valid[:, None], d, torch.tensor(1e9, device=dev))
+    dev_col_best = torch.argmin(d, dim=0)
+    host = match_descriptors_host(*host_in, match_cfg)
+    checks = {
+        "best_idx": np.array_equal(best_idx, res.indices.cpu().numpy()),
+        "best": np.array_equal(best, res.distances.cpu().numpy()),
+        "second": np.array_equal(second, res.second_distances.cpu().numpy()),
+        "col_best": np.array_equal(col_best, dev_col_best.cpu().numpy()),
+        "cross_checked": np.array_equal(host.valid.numpy(), res.valid.cpu().numpy()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"native: the host matcher differs from the card's: {checks}")
+    # The torch matcher on the host CPU, the one the C++ matcher replaces
+    # there (``ops.hamming.matcher_for``).
+    cpu_in = [torch.from_numpy(w) for w in words]
+    cpu = match_descriptors(cpu_in[0], cpu_in[1], cpu_in[2], cpu_in[3], match_cfg)
+    checks["cpu_torch"] = all(np.array_equal(x.numpy(), y.numpy()) for x, y in zip(cpu, host))
+    if not checks["cpu_torch"]:
+        raise AssertionError("native: the host matcher differs from the torch matcher on the CPU")
+    host_times, wall_times, cpu_times = [], [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        native.hamming_match(*host_in)
+        host_times.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        match_descriptors(cpu_in[0], cpu_in[1], cpu_in[2], cpu_in[3], match_cfg)
+        cpu_times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        match_descriptors(a.descriptors, a.valid, b.descriptors, b.valid, match_cfg)
+        torch.cuda.synchronize()
+        wall_times.append(1e3 * (time.perf_counter() - t0))
+    emit({
+        "phase": "native", "library": str(path.relative_to(REPO)), "key": path.stem.split("_")[-1],
+        "march": march, "build_seconds": NATIVE_BUILD["seconds"], "toolchain": toolchain(),
+        "corpus": {"pngs_per_filter": len(src), "filters": sorted(files), "rgb": 1, "pgm": 1, "shape": [h, w]},
+        "decode_bit_equal_to_numpy": True,
+        "decode_ms_per_frame_host": {
+            "numpy": {f"filter{ft}": ms for ft, ms in numpy_ms.items()},
+            "decode_gray": {f"filter{ft}": ms for ft, ms in native_ms.items()},
+            "loader_filter0": {f"workers_{k}": ms for k, ms in loader_ms.items()},
+        },
+        "matcher": {
+            "rows": [int(a.valid.shape[0]), int(b.valid.shape[0])],
+            "valid": [int(a.valid.sum()), int(b.valid.sum())], "matches": int(res.valid.sum()),
+            "bit_equal_to_device": checks, "host_ms": statistics.median(host_times),
+            "cpu_torch_ms": statistics.median(cpu_times), "cpu_torch_threads": torch.get_num_threads(),
+            "device_event_ms": median_ms(lambda: match_descriptors(a.descriptors, a.valid, b.descriptors, b.valid, match_cfg)),
+            "device_wall_ms": statistics.median(wall_times),
+        },
+        "phase_seconds": time.perf_counter() - phase_t0,
+    })
+
+
+def phase_native_ingest(dev):
+    """The offline phase's 29-frame PNG KITTI layout through the runner in
+    ``native`` and ``stream`` mode at the defaults (window 8): trajectories
+    and diagnostics bit-equal, the native ingestion report complete."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.slam.runner import run_kitti_sequence
+
+    phase_t0 = time.perf_counter()
+    root = REPO / "runs" / "chip_smoke" / "offline_kitti_bench"
+    runs, launches = {}, None
+    for mode in ("native", "stream"):
+        if mode == "native":
+            reset_launches()
+        # The stream run decodes with the numpy decoder, so the gate holds
+        # the C++ decoder and loader against an independent decoder.
+        os.environ["MVSLAM_NATIVE_DECODE"] = "0" if mode == "stream" else "1"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # One run id, two output roots: the runs' artifacts can be compared file by file.
+        result = run_kitti_sequence(root, run_id="smoke_native_ingest", ingestion=mode, device=dev,
+                                    output_root=REPO / "runs" / "chip_smoke" / f"native_ingest_{mode}")
+        runs[mode] = {"result": result, "elapsed": time.perf_counter() - t0}
+        del os.environ["MVSLAM_NATIVE_DECODE"]
+        if mode == "native":
+            launches = read_launches("native_ingest")
+    a, b = (np.load(runs[m]["result"].trajectory_path) for m in ("native", "stream"))
+    if sorted(a.files) != sorted(b.files) or not all(np.array_equal(a[k], b[k]) for k in a.files):
+        raise AssertionError("native_ingest: the native run's trajectory differs from the stream run's")
+    diags = {m: json.loads(runs[m]["result"].diagnostics_path.read_text()) for m in runs}
+    if stripped_diagnostics(diags["native"]) != stripped_diagnostics(diags["stream"]):
+        raise AssertionError("native_ingest: frame_diagnostics.json differs between native and stream")
+    report = json.loads((runs["native"]["result"].run_dir / "reports" / "ingestion_report.json").read_text())
+    fields = {"backend", "decoded", "failed", "consumer_wait_s", "worker_wait_s"}
+    if set(report) != fields or report["backend"] != "native" or report["decoded"] != OFFLINE_FRAMES or report["failed"]:
+        raise AssertionError(f"native_ingest: ingestion_report {report}")
+    emit({
+        "phase": "native_ingest", "frames": OFFLINE_FRAMES, "window": 8,
+        "seconds": {m: runs[m]["elapsed"] for m in runs},
+        "fps": {m: (OFFLINE_FRAMES - 1) / runs[m]["elapsed"] for m in runs},
+        "ingestion_report": report, "bit_equal_to_stream": True, "stream_decoder": "numpy",
+        "launches": launches, "phase_seconds": time.perf_counter() - phase_t0,
+    })
+    return launches, {m: runs[m]["result"].run_dir for m in runs}
+
+
+def phase_eval(run_dirs):
+    """The port's evaluation layer over the native_ingest phase's two run
+    directories against the scene's ground truth."""
+    import asyncio
+
+    from mvslam_tpu_torch.eval.baselines import MetricThreshold, upsert_baseline
+    from mvslam_tpu_torch.eval.ci_runner import SeverityWeights, score_run
+    from mvslam_tpu_torch.eval.determinism_validation import build_determinism_report
+    from mvslam_tpu_torch.eval.governance import BenchmarkSpec, run_governance
+    from mvslam_tpu_torch.eval.harness import load_config, run_evaluation
+    from mvslam_tpu_torch.eval.readiness import generate_readiness_report
+    from mvslam_tpu_torch.eval.regression_gate import execute_gate
+
+    phase_t0 = time.perf_counter()
+    work = REPO / "runs" / "chip_smoke" / "eval"
+    work.mkdir(parents=True, exist_ok=True)
+    gt = REPO / "runs" / "chip_smoke" / "offline_kitti_bench" / "gt.txt"
+    thresholds = {"ATE_RMSE": {"direction": "lower", "tolerance": 0.0}, "RPE_RMSE": {"direction": "lower", "tolerance": 0.0}}
+    store = work / "baselines.json"
+    store.unlink(missing_ok=True)
+
+    def config(mode, **baseline):
+        cfg = {"run": {"run_id": f"smoke_eval_{mode}", "output_root": str(work / "runs")},
+               "evaluation": {"trajectories": [{"name": "offline_bench", "gt": str(gt), "est_run_dir": str(run_dirs[mode])}]}}
+        if baseline:
+            cfg["baseline"] = {"store": str(store), "key": "offline_bench", "metric_thresholds": thresholds, **baseline}
+        path = work / f"{mode}{'_baseline' if baseline else ''}.json"
+        path.write_text(json.dumps(cfg))
+        return path
+
+    summaries = {m: run_evaluation(load_config(config(m))) for m in ("stream", "native")}
+    if summaries["native"]["aggregate"] != summaries["stream"]["aggregate"]:
+        raise AssertionError("eval: ATE/RPE of the native run differ from the stream run's")
+    run_evaluation(load_config(config("stream", write=True)))  # the baseline, from the stream run
+    gate = asyncio.run(execute_gate([config("native", write=False)], max_concurrency=1))
+    if gate["status"] != "pass":
+        raise AssertionError(f"eval: the native run fails the gate against the stream baseline: {gate}")
+    severity = score_run(json.loads((Path(gate["runs"][0]["run_dir"]) / "summary.json").read_text()), SeverityWeights())
+    det = build_determinism_report(run_dirs["stream"], run_dirs["native"])
+    if det.mismatched or det.missing_in_b or det.missing_in_a != ["reports/ingestion_report.json"]:
+        raise AssertionError(f"eval: the two run directories differ: {det.to_dict()}")
+    # Governance: the native run's evaluation as a budgeted subprocess,
+    # against the stream run's numbers as its baseline.
+    perf_store = work / "governance_baselines.json"
+    perf_store.unlink(missing_ok=True)
+    upsert_baseline(perf_store, "native_run_ate", summaries["stream"]["aggregate"])
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from mvslam_tpu_torch.eval.harness import load_config, run_evaluation; "
+            "print(json.dumps(run_evaluation(load_config(sys.argv[2]))['aggregate']))")
+    spec = BenchmarkSpec(name="native_run_ate", command=[sys.executable, "-c", code, str(REPO), str(config("native"))],
+                         runtime_budget_s=300, metric_thresholds={k: MetricThreshold.from_config(v) for k, v in thresholds.items()})
+    governance = run_governance({"specs": [spec], "baseline_store": str(perf_store)})
+    if governance["status"] != "pass" or governance["benchmarks"][0]["baseline_comparison"]["status"] != "pass":
+        raise AssertionError(f"eval: governance {governance}")
+    telemetry = json.loads((run_dirs["native"] / "reports" / "telemetry_summary.json").read_text())
+    readiness = generate_readiness_report(None, summaries["native"], telemetry)
+    if readiness["sections"]["evaluation"]["status"] != "pass" or readiness["status"] == "fail":
+        raise AssertionError(f"eval: readiness {readiness}")
+    emit({
+        "phase": "eval", "aggregate": summaries["native"]["aggregate"], "equal_to_stream": True,
+        "gate": gate["status"], "severity": severity,
+        "determinism": {"matched": len(det.matched), "only_in_native": det.missing_in_a},
+        "governance": {"status": governance["status"], "elapsed_s": governance["benchmarks"][0]["elapsed_s"]},
+        "readiness": {"status": readiness["status"], "digest": readiness["digest"],
+                      "sections": {k: v["status"] for k, v in readiness["sections"].items()}},
+        "phase_seconds": time.perf_counter() - phase_t0,
+    })
+
+
+def phase_animate(dev, no_loops_run_dir: Path):
+    """``run_visual_slam`` with ``enable_animation=True`` on the offline
+    scene at the offline phase's settings without loop closure: bit-equal
+    to the offline phase's run without loops, one recorded position per
+    frame."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.slam.offline import run_visual_slam
+    from mvslam_tpu_torch.viz import path_animator
+
+    phase_t0 = time.perf_counter()
+    root = REPO / "runs" / "chip_smoke" / "offline_kitti_bench"
+    made = []
+
+    class Recorded(path_animator.VehiclePathLiveAnimator):
+        """The animator, keeping each pose it was handed (the system's live
+        pose at each frame)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.handed = []
+            made.append(self)
+
+        def update(self, pose):
+            self.handed.append(np.array(pose))
+            super().update(pose)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(path_animator, "VehiclePathLiveAnimator", Recorded):
+        summary = run_visual_slam(offline_config(root, root / "gt.txt", "smoke_animate", enable_loop_closure=False,
+                                                 enable_animation=True), device=dev)
+    elapsed = time.perf_counter() - t0
+    launches = read_launches("animate")
+    run_dir = Path(summary["run_dir"])
+    a, b = (np.load(d / "trajectories" / "estimated.npz") for d in (run_dir, no_loops_run_dir))
+    if sorted(a.files) != sorted(b.files) or not all(np.array_equal(a[k], b[k]) for k in a.files):
+        raise AssertionError("animate: the trajectory differs from the offline phase's run without loops")
+    if (run_dir / "offline_summary.json").read_bytes() != (no_loops_run_dir / "offline_summary.json").read_bytes():
+        raise AssertionError("animate: offline_summary.json differs from the offline phase's run without loops")
+    (animator,) = made
+    poses = a["poses"]
+    live = [(float(p[0, 3]), float(p[2, 3])) for p in animator.handed]
+    if animator.positions != live or len(live) != OFFLINE_FRAMES or live[0] != (float(poses[0, 0, 3]), float(poses[0, 2, 3])):
+        raise AssertionError("animate: the recorder does not hold the system's x/z once per frame")
+    # Window BA refines past keyframe poses after the recorder saw them: the
+    # live path and the final trajectory differ by that refinement.
+    refined = max(np.hypot(x - p[0, 3], z - p[2, 3]) for (x, z), p in zip(live, poses))
+    emit({
+        "phase": "animate", "frames": OFFLINE_FRAMES, "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+        "recorded_positions": len(animator.positions), "max_live_vs_final_xz": float(refined),
+        "bit_equal_to_offline_no_loops": True,
+        "seconds": elapsed, "fps": (OFFLINE_FRAMES - 1) / elapsed, "launches": launches,
+        "phase_seconds": time.perf_counter() - phase_t0,
     })
     return launches
 
@@ -1623,10 +2055,14 @@ def main() -> int:
     by_path["flow"] = phase_flow(scene, torch.device("cuda", 0))
     by_path["slam_ba"] = phase_slam_ba(scene, torch.device("cuda", 0), slam_summary)
     phase_pose_graph(torch.device("cuda", 0))
-    by_path["offline"] = phase_offline(torch.device("cuda", 0), args.long_offline)
+    by_path["offline"], offline_no_loops = phase_offline(torch.device("cuda", 0), args.long_offline)
     by_path["reloc"] = phase_reloc(scene, torch.device("cuda", 0))
     by_path["async_stream"] = phase_async_stream(scene, torch.device("cuda", 0))
     by_path["async_ingest"] = phase_async_ingest(torch.device("cuda", 0))
+    phase_native(torch.device("cuda", 0))
+    by_path["native_ingest"], ingest_runs = phase_native_ingest(torch.device("cuda", 0))
+    phase_eval(ingest_runs)
+    by_path["animate"] = phase_animate(torch.device("cuda", 0), offline_no_loops)
     phase_bow_index(torch.device("cuda", 0))
     if any(name.split(".")[0] in ("jax", "mvslam_tpu") for name in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")

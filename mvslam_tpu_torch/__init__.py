@@ -16,7 +16,10 @@ runs by default), and the numpy host modules these use (``core``,
 ``data.synthetic``), and the live control-plane path
 (``SLAMSystem.run_stream_async`` over ``runtime``'s feature and tracking
 planes, the async ingestion pipeline, the hub, supervisor and failure
-injection) with the front-end facades (``frontend``). The two Pallas kernels of the reference run as
+injection) with the front-end facades (``frontend``), the C++ host
+library (``native``: frame decode, the in-order frame loader, the Hamming
+matcher of the CPU's host matching paths), the evaluation layer (``eval``)
+and visualisation (``viz``). The two Pallas kernels of the reference run as
 hand-written CUDA kernels (``csrc/``) on CUDA tensors; CPU tensors take
 each kernel's plain PyTorch version.
 """

@@ -21,10 +21,12 @@ budgets, as in the reference.
 
 ``WindowBundleAdjuster`` builds the observations from a keyframe window:
 consecutive pairs are matched (cross-checked Hamming) and RANSAC-gated on
-the adjuster's device, the gated matches are chained into tracks,
-triangulated over each track's widest span and gated on their worst
-reprojection, then refined; a refinement that moves a pose beyond a share
-of the keyframe spacing is rejected like a conditioning trip.
+the adjuster's device (on the CPU the matching runs in the native
+library's C++ matcher, equal bit for bit), the gated matches are
+chained into tracks, triangulated over each track's widest span and gated
+on their worst reprojection, then refined; a refinement that moves a pose
+beyond a share of the keyframe spacing is rejected like a conditioning
+trip.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from mvslam_tpu_torch.geometry.projection import normalize_pixels
 from mvslam_tpu_torch.ops.hamming import (
     MatchConfig,
     gather_matched_points,
-    match_descriptors,
+    matcher_for,
     select_matches,
 )
 from mvslam_tpu_torch.ops.ransac import RansacConfig, ransac_essential
@@ -338,7 +340,7 @@ def _gated_pair_packed(key, a_id, b_id, descA, validA, kpA, descB, validB, kpB, 
     RANSAC over them (128 hypotheses, the key folded with both frame ids),
     packed as float32 ``[pairs_a (M), pairs_b (M), mask (M)]``, the mask
     being the selection's validity AND the inliers when the fit succeeded."""
-    res = match_descriptors(descA, validA, descB, validB, MatchConfig(cross_check=True))
+    res = matcher_for(descA.device)(descA, validA, descB, validB, MatchConfig(cross_check=True))
     sel = select_matches(res, max_matches=_PAIR_GATE_M)
     p1, p2 = gather_matched_points(kpA, kpB, sel)
     r = ransac_essential(
@@ -376,6 +378,7 @@ class WindowBundleAdjuster:
         # previous call. Matching depends only on the two keyframes'
         # features, so entries never go stale; bounded by the window size.
         self._pair_cache: dict = {}
+        matcher_for(self.device)  # on the CPU: builds the C++ matcher now, not in the first gate
 
     def _gate_pair(self, key, a, b) -> np.ndarray:
         """(n, 2) gated match pairs of keyframes a and b (one upload of the

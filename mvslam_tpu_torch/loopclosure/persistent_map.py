@@ -33,7 +33,7 @@ from mvslam_tpu_torch.ops.brief import descriptor_words
 from mvslam_tpu_torch.ops.hamming import (
     MatchConfig,
     gather_matched_points,
-    match_descriptors,
+    matcher_for,
     select_matches,
 )
 from mvslam_tpu_torch.ops.ransac import RansacConfig, ransac_essential
@@ -155,6 +155,7 @@ class MapRelocalizer:
         self.ransac_threshold_px = ransac_threshold_px
         self.device = torch.device(device)
         self._key = (key if key is not None else prng.key(0)).to(self.device)
+        matcher_for(self.device)  # on the CPU: builds the C++ matcher now, not in the first search
         self._device_index = None
         if device_index and len(snapshot.keyframes):
             # Bulk-load the snapshot's histograms into device memory once;
@@ -206,10 +207,12 @@ class MapRelocalizer:
         q_xy = self._put(keypoints, torch.float32)
         fx = float(self.K[0, 0])
 
+        # On the CPU the per-candidate matching runs in the C++ matcher.
+        match = matcher_for(self.device)
         best = None
         for idx in order:
             kf = snap.keyframes[idx]
-            res = match_descriptors(
+            res = match(
                 descriptor_words(kf.descriptors, self.device),
                 self._put(np.asarray(kf.valid, bool)),
                 q_desc,

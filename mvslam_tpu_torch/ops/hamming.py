@@ -7,12 +7,17 @@ distance matrix is one bf16 product (exact for 0/1 values and sums up to
 
 ``select_matches`` orders by ascending distance with a stable sort, the
 tie order of ``jax.lax.top_k`` (lower index first).
+
+``match_descriptors_host`` is the C++ matcher of the port's native
+library, equal bit for bit. ``matcher_for(device)`` is the one place that
+chooses between the two: the C++ matcher for descriptors on the CPU, the
+product everywhere else.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +78,56 @@ def match_descriptors(
         mutual = torch.gather(col_best, -1, best_idx) == torch.arange(d.shape[-2], device=d.device)
         ok = ok & mutual
     return MatchResult(best_idx, best, second, ok)
+
+
+def match_descriptors_host(desc1, valid1, desc2, valid2, config: MatchConfig = MatchConfig()) -> MatchResult:
+    """Host (C++) brute-force matcher, equal to :func:`match_descriptors`
+    bit for bit (parity: ``tests/test_torch_native.py``).
+
+    Takes (N, 8) uint32 descriptors and (N,) masks as numpy arrays or CPU
+    tensors, and returns a :class:`MatchResult` of CPU tensors with
+    :func:`match_descriptors`'s dtypes. The matching paths on the CPU (the
+    window-BA pair gate, loop geometry, the relocalizer) take it through
+    :func:`matcher_for` in place of the N x M product. Raises
+    ``RuntimeError`` when the native library is unavailable.
+    """
+    import numpy as np
+
+    from mvslam_tpu_torch import native
+
+    d1, d2 = (np.ascontiguousarray(d).view(np.uint32) for d in (desc1, desc2))
+    v1, v2 = (np.asarray(v, bool) for v in (valid1, valid2))
+    out = native.hamming_match(d1, v1, d2, v2)
+    if out is None:
+        raise RuntimeError("the native host library is unavailable")
+    best_idx, best, second, col_best = out
+    ok = v1 & (best < config.max_distance) & (best < _BIG * 0.5)
+    if config.use_ratio_test:
+        ok = ok & (best < config.ratio * second)
+    if config.cross_check:
+        ok = ok & (col_best[best_idx] == np.arange(d1.shape[0]))
+    return MatchResult(
+        torch.from_numpy(best_idx.astype(np.int64)), torch.from_numpy(best), torch.from_numpy(second),
+        torch.from_numpy(ok),
+    )
+
+
+def matcher_for(device) -> Callable[..., MatchResult]:
+    """The matcher for descriptors on ``device``: on the CPU the native
+    library's C++ matcher (faster there than the product: PERF.md, the
+    ``native`` phase of ``chip_smoke.py``), elsewhere
+    :func:`match_descriptors`.
+    Both give the same :class:`MatchResult` bit for bit. On the CPU this
+    builds the library if the process has not loaded it yet, so the
+    matching paths' owners (``SLAMSystem``, ``WindowBundleAdjuster``,
+    ``MapRelocalizer``) call it when they start, not in their first match.
+    """
+    if torch.device(device).type == "cpu":
+        from mvslam_tpu_torch import native
+
+        if native.native_available():
+            return match_descriptors_host
+    return match_descriptors
 
 
 class SelectedMatches(NamedTuple):

@@ -10,14 +10,16 @@ This is host-side I/O; the windowed device-batch engine
 
 Port of ``mvslam_tpu/runtime/frame_stream.py``. The JAX package's default
 reader decodes with its C++ library, then cv2, then Pillow. The port's
-default reader needs none of them: :func:`decode_png` and
-:func:`decode_pnm` read 8-bit grey, RGB and RGBA non-interlaced PNG and
-binary PGM/PPM with numpy and ``zlib``, colour to grey by BT.601 in fixed
-point as the native decoder does.
+default reader decodes with its own C++ library (``mvslam_tpu_torch.native``)
+and then with numpy: :func:`decode_png` and :func:`decode_pnm` read 8-bit
+grey, RGB and RGBA non-interlaced PNG and binary PGM/PPM with numpy and
+``zlib``, colour to grey by BT.601 in fixed point as libpng, and so the
+native decoder, does. Neither cv2 nor Pillow is needed.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import threading
 import time
@@ -106,10 +108,13 @@ _PNG_COLOR_NAMES = {3: "palette", 4: "grey+alpha"}
 
 
 def _luma_bt601(rgb: np.ndarray) -> np.ndarray:
-    """(H, W, 3+) uint8 → (H, W) uint8, BT.601 weights in 15-bit fixed
-    point (0.299, 0.587, 0.114), rounded to nearest."""
+    """(H, W, 3+) uint8 → (H, W) uint8 as libpng's
+    ``png_set_rgb_to_gray_fixed(png, 1, 29900, 58700)`` gives it: BT.601
+    weights (0.299, 0.587) truncated to 15-bit fixed point (9797, 19234),
+    blue the remainder (3737), the sum truncated. Grey colour (R = G = B)
+    stays exact because the weights sum to 2^15."""
     c = rgb.astype(np.uint32)
-    return ((9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2] + 16384) >> 15).astype(np.uint8)
+    return ((9797 * c[..., 0] + 19234 * c[..., 1] + 3737 * c[..., 2]) >> 15).astype(np.uint8)
 
 
 def _unfilter_png(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
@@ -216,10 +221,31 @@ def decode_pnm(data: bytes) -> np.ndarray:
     return _luma_bt601(pix.reshape(height, width, 3))
 
 
+def _native_decoder():
+    """The native library when the default reader decodes with it, else
+    None (``MVSLAM_NATIVE_DECODE=0``, or no compiler). The first call in a
+    process builds or loads the library, so the readers' owners
+    (:class:`FrameStream`, the ingestion pipeline) call it when they start,
+    not in their first read."""
+    if os.environ.get("MVSLAM_NATIVE_DECODE", "1") == "0":
+        return None
+    from mvslam_tpu_torch import native
+
+    return native if native.native_available() else None
+
+
 def _default_read_fn(path: Path) -> Optional[np.ndarray]:
     """Decode one frame file to (H, W) uint8 grey; None when the file is
-    missing. A format the port cannot read raises with the format's name."""
+    missing. The native C++ decoder goes first (every PNG and binary PGM,
+    the same pixels as the numpy decoder where both read a file); what it
+    does not decode, or every file under ``MVSLAM_NATIVE_DECODE=0``, goes
+    to the numpy decoder. A format neither reads raises with its name."""
     path = Path(path)
+    native = _native_decoder()
+    if native is not None:
+        img = native.decode_gray(path)
+        if img is not None:
+            return img
     if not path.exists():
         return None
     data = path.read_bytes()
@@ -254,6 +280,8 @@ class FrameStream:
         if len(self.timestamps) != len(self.paths):
             raise ValueError("timestamps must match paths length")
         self.read_fn = read_fn or _default_read_fn
+        if read_fn is None:
+            _native_decoder()  # builds the default reader's library now, not in the first read
         self.drop_on_backpressure = drop_on_backpressure
         self.stats = FrameStreamStats()
         self._buffer = BoundedRingBuffer(buffer_size)

@@ -1,7 +1,8 @@
 """Multi-stage async decode pipeline.
 
 Port of ``mvslam_tpu/runtime/ingestion.py`` over the port's own decoder
-(``runtime.frame_stream._default_read_fn``: numpy + zlib). Parity:
+(``runtime.frame_stream._default_read_fn``: the native C++ decoder, then
+numpy + zlib). Parity:
 reference ``ingestion_pipeline.py`` — producer thread → N decode
 workers (threads, or a ProcessPoolExecutor behind dispatcher/collector
 threads — the only cross-process boundary) → output queue →
@@ -32,7 +33,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from mvslam_tpu_torch.runtime.frame_stream import FramePacket, _default_read_fn
+from mvslam_tpu_torch.runtime.frame_stream import FramePacket, _default_read_fn, _native_decoder
 from mvslam_tpu_torch.runtime.ingestion_control import (
     AdaptiveBoundedQueue,
     CircuitBreaker,
@@ -95,6 +96,8 @@ class AsyncIngestionPipeline:
         self.read_fn = read_fn or _default_read_fn
         if self.config.use_process_pool and read_fn is not None:
             raise ValueError("injected read_fn is incompatible with the process pool")
+        if read_fn is None:
+            _native_decoder()  # builds the default reader's library now (the pool's workers load it)
 
         self.entry_queue = AdaptiveBoundedQueue(self.config.queue_capacity)
         self.output_queue = AdaptiveBoundedQueue(self.config.queue_capacity)

@@ -15,7 +15,10 @@ relocalization after a tracking loss (``enable_relocalization``) and the
 map snapshot's vocabulary and histograms (``persist_map_snapshot``): the
 default configuration runs whole. ``run_stream_async`` is the live path:
 batched extraction on a feature control plane's thread, ordered tracking
-behind a tracking control plane (``runtime/``).
+behind a tracking control plane (``runtime/``). On the CPU, the matching
+off the tracking step (the window-BA pair gate, relocalization, loop
+geometry) runs in the port's C++ matcher, equal bit for bit; a system on
+the CPU builds that library when it starts.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from mvslam_tpu_torch.loopclosure.persistent_map import (
     load_map_snapshot,
     save_map_snapshot,
 )
+from mvslam_tpu_torch.ops.hamming import matcher_for
 from mvslam_tpu_torch.runtime.frame_stream import FramePacket
 from mvslam_tpu_torch.slam.tracking import (
     bootstrap_frame,
@@ -185,6 +189,7 @@ class SLAMSystem:
         self._local_ba = (
             WindowBundleAdjuster(self.K, device=self.device) if self.config.enable_local_ba else None
         )
+        matcher_for(self.device)  # on the CPU: builds the C++ matcher now, not in the first match
 
     # ------------------------------------------------------------------
     # Frame processing

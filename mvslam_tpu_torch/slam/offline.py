@@ -13,9 +13,12 @@ The compute path is the fused tracking step; this module owns the *offline
 orchestration*: loop topology and corrections are host logic.
 ``run_visual_slam(config, device="cuda")`` and ``--device`` on the command
 line carry the device: tracking, window BA, BoW, loop geometry, the
-pose-graph solves and relocalization all run there. Only the device path of
-the loop geometry is ported (not the reference's native host matcher path),
-and ``enable_animation`` waits for the ``viz`` package (ROADMAP step 14).
+pose-graph solves and relocalization all run there; on the CPU the loop
+geometry's matching runs in the native library's C++ matcher (equal bit
+for bit). ``enable_animation``
+(``--animate``) feeds every frame's pose, the corrected keyframe chain and
+the loop edges to ``viz.path_animator.VehiclePathLiveAnimator``, which
+draws only where matplotlib is installed.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from mvslam_tpu_torch.ops.hamming import (
     MatchConfig,
     MatchResult,
     gather_matched_points,
-    match_descriptors,
+    matcher_for,
     select_matches,
 )
 from mvslam_tpu_torch.ops.ransac import RansacConfig, ransac_essential
@@ -273,6 +276,7 @@ def _loop_geometry(system, kf_a, kf_bs, salts):
     component key. ``min_inliers`` gates sit on the host (they only affect
     the success flag, never the model).
     """
+    match = matcher_for(system.device)
     K = _put(system, system.K, torch.float32)
     base_key = system.registry.key_for("loop_closure", system.device)
     thresh = 2.0 / float(system.K[0, 0])
@@ -280,7 +284,7 @@ def _loop_geometry(system, kf_a, kf_bs, salts):
     rows = []
     for salt, kf_b in zip(salts, kf_bs):
         kpB, descB, validB = _put_keyframe(system, kf_b)
-        res = match_descriptors(descA, validA, descB, validB, MatchConfig(cross_check=True))
+        res = match(descA, validA, descB, validB, MatchConfig(cross_check=True))
         rows.append(
             _loop_pair_post(
                 base_key, int(salt), res.indices, res.distances, res.second_distances,
@@ -391,10 +395,6 @@ def _correct_keyframe_chain(system, cand_frame_id: int, query_frame_id: int, rel
 
 def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
     """Track, close loops, correct the pose graph and evaluate, on ``device``."""
-    if config.enable_animation:
-        raise NotImplementedError(
-            "enable_animation needs the viz package, which comes with ROADMAP step 14"
-        )
     packets, K = _load_frames(config)
     system = SLAMSystem(
         SLAMSystemConfig(
@@ -420,6 +420,13 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
         device=system.device,
     )
 
+    animator = None
+    if config.enable_animation:
+        from mvslam_tpu_torch.viz.path_animator import VehiclePathLiveAnimator
+
+        animator = VehiclePathLiveAnimator()
+        animator.start()
+
     loops_detected: List[Dict[str, Any]] = []
     loops_accepted: List[Dict[str, Any]] = []
     seen_keyframes = 0
@@ -435,13 +442,15 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
             yield frame, packet.timestamp
 
     def on_frame(diag):
-        """Per-frame host consumer: loop closure.
+        """Per-frame host consumer: animation + loop closure.
 
         Runs after the engine's own host bookkeeping (keyframes,
         relocalization) for that frame; in windowed mode it lags the
         device by one window, like all host logic.
         """
         nonlocal seen_keyframes
+        if animator is not None:
+            animator.update(system.pose)
         if not config.enable_loop_closure:
             return
         # New keyframe → feed BoW, query for loops (host logic).
@@ -490,6 +499,11 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
             }
         )
         _correct_keyframe_chain(system, cand_frame_id, kf.frame_id, rel)
+        if animator is not None:
+            kfs = system.keyframes.keyframes
+            node = {k.frame_id: i for i, k in enumerate(kfs)}
+            animator.set_optimized([(k.pose[0, 3], k.pose[2, 3]) for k in kfs])
+            animator.add_loop_edge(node[cand_frame_id], node[kf.frame_id])
         logger.info(
             "loop accepted",
             extra={"query": kf.frame_id, "candidate": cand_frame_id, "inliers": inliers},
@@ -499,7 +513,11 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
     # window) with the per-frame host logic, including the loop-closure
     # hook above, running as the engine's on_frame callback.
     window = 1 if config.pose_source == "flow_first" else max(1, config.window)
-    system._run_windowed(frame_pairs(), window, config.windows_per_dispatch, on_frame)
+    try:
+        system._run_windowed(frame_pairs(), window, config.windows_per_dispatch, on_frame)
+    finally:
+        if animator is not None:
+            animator.stop()
 
     result = system.finalize_run()
     summary: Dict[str, Any] = {

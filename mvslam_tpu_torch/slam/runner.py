@@ -2,13 +2,13 @@
 
 Port of ``mvslam_tpu/slam/runner.py``: ``run_kitti_sequence``, strict JSON
 pipeline-config loading with unknown-field rejection, sync / streaming /
-async ingestion selection (``async``: the ``runtime.ingestion`` decode
-pipeline, whose failure report is saved as ``ingestion_report``), artifact
-finalization. ``run_kitti_sequence(..., device="cuda")`` and ``--device``
-carry the device. The ``native`` mode needs the C++ frame loader, which is
-not ported yet: the function raises ``NotImplementedError`` for it and the
-command line does not offer it. Entry point: ``python -m
-mvslam_tpu_torch.slam.runner``.
+async / native ingestion selection (``async``: the ``runtime.ingestion``
+decode pipeline, whose failure report is saved as ``ingestion_report``;
+``native``: the C++ decode pool of ``mvslam_tpu_torch.native``, whose
+counts and waits are saved under the same name, and which raises
+``RuntimeError`` when the library cannot be built), artifact finalization.
+``run_kitti_sequence(..., device="cuda")`` and ``--device`` carry the
+device. Entry point: ``python -m mvslam_tpu_torch.slam.runner``.
 """
 
 from __future__ import annotations
@@ -23,13 +23,14 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from mvslam_tpu_torch import native
 from mvslam_tpu_torch.core.determinism import hash_config_path
 from mvslam_tpu_torch.data.kitti import KittiSequence
 from mvslam_tpu_torch.data.validation import validate_kitti
 from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
 from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
 from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
-from mvslam_tpu_torch.runtime.frame_stream import _default_read_fn
+from mvslam_tpu_torch.runtime.frame_stream import FramePacket, _default_read_fn
 from mvslam_tpu_torch.runtime.ingestion import AsyncIngestionPipeline, IngestionPipelineConfig
 from mvslam_tpu_torch.slam.api import SLAMRunResult, SLAMSystem, SLAMSystemConfig
 
@@ -76,7 +77,7 @@ def run_kitti_sequence(
     seed: int = 0,
     max_frames: Optional[int] = None,
     config_path: Optional[Path] = None,
-    ingestion: str = "stream",  # "sync" | "stream" | "async"
+    ingestion: str = "stream",  # "sync" | "stream" | "async" | "native"
     buffer_size: int = 8,
     num_decode_workers: int = 2,
     validate: bool = True,
@@ -87,13 +88,10 @@ def run_kitti_sequence(
 ) -> SLAMRunResult:
     """Validate the dataset, run the sequence on ``device``, persist the
     artifacts."""
-    if ingestion == "native":
-        raise NotImplementedError(
-            "ingestion mode 'native' needs the C++ frame loader, which is not ported yet; "
-            "use 'sync', 'stream' or 'async'"
-        )
-    if ingestion not in ("sync", "stream", "async"):
+    if ingestion not in ("sync", "stream", "async", "native"):
         raise ValueError(f"unknown ingestion mode {ingestion!r}")
+    if ingestion == "native" and not native.native_available():
+        raise RuntimeError("native ingestion requested but the C++ library is unavailable")
     if validate:
         result = validate_kitti(dataset_root, sequence, camera)
         if not result.ok:
@@ -133,6 +131,33 @@ def run_kitti_sequence(
             window=window,
             windows_per_dispatch=windows_per_dispatch,
         )
+    elif ingestion == "native":
+        entries = seq.frame_entries(max_frames)
+
+        def native_packets():
+            """The C++ decode pool's frames in order; a frame that failed to
+            decode is skipped and counted in the report."""
+            with native.NativeFrameLoader(
+                [e.path for e in entries], workers=num_decode_workers, capacity=max(buffer_size, 2)
+            ) as loader:
+                for item in loader:
+                    if item.frame is None:
+                        continue
+                    e = entries[item.index]
+                    yield FramePacket(index=item.index, timestamp=e.timestamp, frame=item.frame, path=e.path)
+                stats = loader.stats()
+            system.store.save_report(
+                "ingestion_report",
+                {
+                    "backend": "native",
+                    "decoded": stats.decoded,
+                    "failed": stats.failed,
+                    "consumer_wait_s": stats.consumer_wait_s,
+                    "worker_wait_s": stats.worker_wait_s,
+                },
+            )
+
+        system.run_stream(native_packets(), window=window, windows_per_dispatch=windows_per_dispatch)
     else:
         entries = seq.frame_entries(max_frames)
         pipeline = AsyncIngestionPipeline(
@@ -155,7 +180,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--config", type=Path, default=None, help="pipeline config JSON")
-    parser.add_argument("--ingestion", choices=["sync", "stream", "async"], default="stream")
+    parser.add_argument("--ingestion", choices=["sync", "stream", "async", "native"], default="stream")
     parser.add_argument("--buffer-size", type=int, default=8)
     parser.add_argument("--decode-workers", type=int, default=2)
     parser.add_argument("--device", default="cuda", help="torch device of every stage (cuda, cpu)")

@@ -546,3 +546,33 @@ def test_run_stream_async_on_the_card_equals_process_frame(cuda, tmp_path):
     report = live.store.load_report("control_plane_report")
     assert report["snapshots"]["feature"]["failed"] == 0 and report["snapshots"]["tracking"]["dropped"] == 0
     assert not report["events"]
+
+
+def test_runner_native_ingestion_on_the_card_equals_stream(cuda, tmp_path):
+    """The runner's ``native`` mode on the card: the port's C++ library
+    builds on the card's host, its frame loader delivers the frames of a
+    small KITTI layout in order, and the trajectory and diagnostics equal
+    the ``stream`` mode's with the numpy decoder bit for bit."""
+    import json
+
+    from mvslam_tpu_torch import native
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.data.synthetic import write_kitti_sequence
+    from mvslam_tpu_torch.slam.runner import run_kitti_sequence
+
+    assert native.native_available(), "the native host library did not build"
+    frames = [f.astype(np.uint8) for f in make_frames(10)]
+    root, _ = write_kitti_sequence(tmp_path / "kitti", frames, np.zeros((10, 3)), (718.856, 718.856, 607.19, 185.22))
+    runs = {}
+    for mode in ("stream", "native"):
+        with pytest.MonkeyPatch.context() as m:
+            if mode == "stream":
+                m.setenv("MVSLAM_NATIVE_DECODE", "0")  # the numpy decoder: independent of the C++ one
+            runs[mode] = run_kitti_sequence(root, run_id=mode, output_root=tmp_path / mode, ingestion=mode, device=cuda)
+    traj = {m: np.load(r.trajectory_path)["poses"] for m, r in runs.items()}
+    assert traj["native"].shape == (10, 4, 4) and np.array_equal(traj["native"], traj["stream"])
+    diags = {m: json.loads((r.run_dir / "diagnostics" / "frame_diagnostics.json").read_text()) for m, r in runs.items()}
+    strip = lambda rows: [{k: v for k, v in d.items() if k != "correlation_id"} for d in rows]  # noqa: E731
+    assert strip(diags["native"]) == strip(diags["stream"])
+    report = json.loads((runs["native"].run_dir / "reports" / "ingestion_report.json").read_text())
+    assert report["backend"] == "native" and report["decoded"] == 10 and report["failed"] == 0

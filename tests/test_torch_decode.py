@@ -3,8 +3,8 @@ writer, and the dataset readers built on it against the JAX package's on
 fake datasets.
 
 Grey PNG/PGM pixels are exact. Colour goes to grey by BT.601 in fixed
-point as the reference's native decoder does; Pillow rounds its own fixed
-point, so colour agrees within 1 level.
+point as libpng, and so the reference's native decoder, does (truncated);
+Pillow rounds its own fixed point, so colour agrees within 1 level.
 """
 
 import io
@@ -138,7 +138,10 @@ def test_png_writer_round_trips(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["16bit", "palette", "grey_alpha", "interlaced", "jpeg", "ascii_pgm"])
-def test_unsupported_formats_are_named(what, tmp_path):
+def test_unsupported_formats_are_named(what, tmp_path, monkeypatch):
+    """The numpy decoder names each format it does not read (the default
+    reader under ``MVSLAM_NATIVE_DECODE=0``). With the native decoder on,
+    the default reader decodes the PNG formats the numpy one does not."""
     img = _image("L", seed=1)
     path = tmp_path / "x.png"
     if what == "16bit":
@@ -163,6 +166,10 @@ def test_unsupported_formats_are_named(what, tmp_path):
         path = tmp_path / "x.pgm"
         path.write_bytes(b"P2\n2 2\n255\n1 2 3 4\n")
         match = "pgm"
+    if what in ("16bit", "palette", "grey_alpha"):
+        expected = img if what == "16bit" else np.asarray(Image.open(path).convert("L"))
+        assert np.array_equal(tfs._default_read_fn(path), expected)
+    monkeypatch.setenv("MVSLAM_NATIVE_DECODE", "0")
     with pytest.raises(ValueError, match=match):
         tfs._default_read_fn(path)
     assert tfs._default_read_fn(tmp_path / "missing.png") is None

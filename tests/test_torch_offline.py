@@ -151,12 +151,17 @@ def test_scale_and_verify_gates_equal_reference_on_its_rows(loop_rows, monkeypat
 # Whole runs
 # ----------------------------------------------------------------------
 
-def test_offline_refuses_animation_and_unknown_inputs(tmp_path):
-    with pytest.raises(NotImplementedError, match="step 14"):
-        toffline.run_visual_slam(toffline.SLAMRunConfig(input_path=tmp_path, enable_animation=True), device="cpu")
+def test_offline_refuses_animation_and_unknown_inputs(layered_kitti, tmp_path, monkeypatch):
+    """Animation, refused until the viz package was ported, now runs; an
+    unknown input kind is still refused before any artifact."""
+    monkeypatch.setenv("MPLBACKEND", "Agg")
+    summary = toffline.run_visual_slam(
+        toffline.SLAMRunConfig(input_path=layered_kitti, output_root=tmp_path / "runs", max_frames=6, window=2,
+                               enable_animation=True), device="cpu")
+    assert summary["frames"] == 6 and (Path(summary["run_dir"]) / "offline_summary.json").exists()
     with pytest.raises(ValueError, match="unknown input kind"):
-        toffline._load_frames(toffline.SLAMRunConfig(input_path=tmp_path, input_kind="lidar"))
-    assert not list(tmp_path.iterdir())
+        toffline._load_frames(toffline.SLAMRunConfig(input_path=tmp_path / "none", input_kind="lidar"))
+    assert not (tmp_path / "none").exists()
 
 
 def test_offline_cli_on_an_image_directory(revisit, tmp_path, capsys):
@@ -285,7 +290,7 @@ def layered_kitti(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("ingestion", ["sync", "stream", "async"])
+@pytest.mark.parametrize("ingestion", ["sync", "stream", "async", "native"])
 def test_run_kitti_sequence_writes_the_references_artifacts(layered_kitti, tmp_path, ingestion):
     kw = dict(sequence="00", run_id="kitti_run", seed=1, max_frames=6, ingestion=ingestion, inject_loss_at=4, window=2)
     ours = trunner.run_kitti_sequence(layered_kitti, output_root=tmp_path / "port", device="cpu", **kw)
@@ -294,9 +299,13 @@ def test_run_kitti_sequence_writes_the_references_artifacts(layered_kitti, tmp_p
     assert (ours.num_frames, ours.num_keyframes, ours.num_failures) == (ref.num_frames, ref.num_keyframes, ref.num_failures)
     assert ours.num_frames == 6 and ours.num_failures >= 1
     assert (ours.map_snapshot_paths is None) == (ref.map_snapshot_paths is None)
+    if ingestion == "native":
+        report, ref_report = (json.loads((r.run_dir / "reports" / "ingestion_report.json").read_text()) for r in (ours, ref))
+        assert report.keys() == ref_report.keys()
+        assert (report["backend"], report["decoded"], report["failed"]) == (ref_report["backend"], ref_report["decoded"], 0)
 
 
-def test_runner_config_and_refusals(layered_kitti, tmp_path):
+def test_runner_config_and_refusals(layered_kitti, tmp_path, monkeypatch):
     cfg = tmp_path / "pipeline.json"
     cfg.write_text(json.dumps({"feature": {"num_features": 128}, "pose": {"num_hypotheses": 64}, "keyframe": {"window_size": 3}}))
     ours, ref = trunner.load_pipeline_config(cfg), jrunner.load_pipeline_config(cfg)
@@ -308,8 +317,10 @@ def test_runner_config_and_refusals(layered_kitti, tmp_path):
     cfg.write_text(json.dumps({"extra": {}}))
     with pytest.raises(ValueError, match="unknown pipeline config sections"):
         trunner.load_pipeline_config(cfg)
-    with pytest.raises(NotImplementedError, match="C\\+\\+ frame loader"):
-        trunner.run_kitti_sequence(layered_kitti, output_root=tmp_path / "runs", ingestion="native", device="cpu")
+    with monkeypatch.context() as m:  # native mode without the library is refused, as the reference's is
+        m.setattr(trunner.native, "native_available", lambda: False)
+        with pytest.raises(RuntimeError, match="C\\+\\+ library is unavailable"):
+            trunner.run_kitti_sequence(layered_kitti, output_root=tmp_path / "runs", ingestion="native", device="cpu")
     with pytest.raises(ValueError, match="unknown ingestion"):
         trunner.run_kitti_sequence(layered_kitti, output_root=tmp_path / "runs", ingestion="carrier", device="cpu")
     with pytest.raises(ValueError, match="validation failed"):
