@@ -12,13 +12,13 @@ and prints no ok line):
 2. build   — nvcc builds both CUDA kernels from ``mvslam_tpu_torch/csrc``
              while g++ builds the native host library from
              ``mvslam_tpu_torch/native/src`` (forced, timed).
-3. K1      — ``fast_detect`` against its plain version on six inputs:
+3. K1      — ``fast_detect`` against its plain version on seven inputs:
              16 bench frames (16, 370, 1226) uint8 and one (the main
              path's window and bootstrap), 16 frames of the slam phase's
              rendered scene (float32, the kernel's f32 route), one
              rendered frame (the flow path's call), 8 bench frames (the
-             offline pipeline's window) and 4 (the feature plane's batch
-             in run_stream_async): detections and raw
+             offline pipeline's window), 4 (the feature plane's batch
+             in run_stream_async) and 2 (a mesh slot's block): detections and raw
              scores bit-equal over the whole map; kernel and plain times
              (CUDA events, median), device time (``torch.profiler``, mean
              of 20 launches) against the bound from the shapes.
@@ -34,8 +34,9 @@ and prints no ok line):
              and device times, the bound, and one PyTorch gather on
              precomputed starts as the yardstick (``library_ms``); the same
              at (8, 370, 1226) (the offline pipeline's window), at
-             (4, 370, 1226) (the feature plane's batch) and at
-             (1, 370, 1226) (a bootstrap frame, a window-1 run).
+             (4, 370, 1226) (the feature plane's batch), at (2, 370, 1226)
+             (a mesh slot's block) and at (1, 370, 1226) (a bootstrap
+             frame, a window-1 run).
 5. k2_lk   — ``extract_patches`` with float32 output at the LK pyramid's
              shapes (1, 370, 1226), (1, 185, 613), (1, 92, 306), 2048
              points including the clamped border band: bit-equal to the
@@ -165,11 +166,33 @@ and prints no ok line):
              wall), ms per ``add``, the matvec's own time (CUDA events over
              200 launches) beside its bound from its bytes, and a host numpy
              matvec's time.
+20. mesh    — ``mvslam_tpu_torch.parallel`` on logical meshes over
+             ``cuda:0`` (one card: no multi-card scaling figure), each
+             against its unsharded run: ``track_superwindow_meshed`` on the
+             bench's 1 + 96 frames (window 16, the main path's
+             configuration with ``mesh_invariant=True``) at 1, 2, 4 and 8
+             slots — detections, descriptors, matches, counts and
+             ``use_essential`` bit-equal to the unsharded pinned run, poses
+             within 1e-3, all 96 frames tracked, two runs at 4 bit-equal;
+             ``batched_track_pairs`` over 8 bench pairs (features and
+             matches bit-equal across sizes, poses within 1e-3);
+             ``sharded_ransac_essential`` with 512 hypotheses on 2,048
+             correspondences (bit-equal at every size and to the unsharded
+             pinned call); ``run_bundle_adjustment_sharded`` on 5 poses x
+             1,024 points at 1, 2, 4 (the reference's tolerances, two runs
+             bit-equal); ``solve_problem_sharded`` on the pose_graph phase's
+             graph at 1, 2, 4 (x within 1e-3, cost within 1e-3 relative,
+             two runs bit-equal); ``DeviceBoWIndex`` over 4 slots on the
+             bow_index phase's map (the host ranking's rule; grown equals
+             bulk). frames/s, ms and peak memory per size; with more than
+             one card, also one mesh over the distinct cards (reported).
 
 Kernel launches are counted per path: the counts are set to 0 just
 before each of main, slam, flow, slam_ba, offline, reloc, async_stream,
-async_ingest (its async run), native_ingest (its native run) and animate
-and read just after (the pose-graph solver and the index run no hand kernel). The
+async_ingest (its async run), native_ingest (its native run), animate and
+mesh (its meshed superwindow and batched pairs) and read just after (the
+pose-graph solver, the index, and the mesh's RANSAC, BA and pose graph
+run no hand kernel). The
 wrappers also count their launches by shape, and the script fails if a path
 launched a kernel at a shape at which phases 3 to 5 did not hold it against
 its plain version. The wrappers count under a lock: in async_stream the
@@ -441,10 +464,11 @@ def phase_k1(frames_u8, frames_f32):
     """K1 on the main path's uint8 window and bootstrap frame, on the slam
     path's float32 window (rendered frames: the kernel's f32 route), on one
     rendered frame (the flow path's call), on the offline pipeline's
-    window of 8 uint8 frames and on the feature plane's batch of 4 uint8
-    frames (run_stream_async)."""
+    window of 8 uint8 frames, on the feature plane's batch of 4 uint8
+    frames (run_stream_async) and on 2 (a superwindow's block on a mesh of
+    8 slots, batched pairs on 4)."""
     routes = [k1_route(x) for x in (frames_u8[:16], frames_f32[:16], frames_u8[:1], frames_f32[:1], frames_u8[:8],
-                                    frames_u8[:4])]
+                                    frames_u8[:4], frames_u8[:2])]
     main = routes[0]
     record = {
         "name": "fast_detect", "route": "cuda", "source": "mvslam_tpu_torch/csrc/fast_detect.cu",
@@ -593,7 +617,7 @@ def k2_route(image, xy, out_dtype, label: str) -> dict:
 def phase_k2(frames_u8):
     """K2's BRIEF route: the blurred (16, 370, 1226) window, 2048 points,
     bf16 tiles (float32 tiles checked too); then the same at 8 frames, at
-    4 and at one."""
+    4, at 2 and at one."""
     import torch
 
     from mvslam_tpu_torch.ops.cuda_patches import extract_patches, extract_patches_plain
@@ -613,9 +637,10 @@ def phase_k2(frames_u8):
         raise AssertionError("K2 extract_patches (float32 tiles) disagrees with its plain version")
     brief = k2_route(image, xy, torch.bfloat16, "bf16 tiles, BRIEF (16, 370, 1226)")
     # The offline pipeline's window of 8 frames, the feature plane's batch
-    # of 4, and the single frame of a bootstrap or a window-1 run.
+    # of 4, a meshed block of 2, and the single frame of a bootstrap or a
+    # window-1 run.
     routes = [brief] + [k2_route(image[:b], xy[:b], torch.bfloat16, f"bf16 tiles, BRIEF ({b}, 370, 1226)")
-                        for b in (8, 4, 1)]
+                        for b in (8, 4, 2, 1)]
     record = {
         "name": "extract_patches", "route": "cuda", "source": "mvslam_tpu_torch/csrc/extract_patches.cu",
         "replaces": "mvslam_tpu/ops/pallas_patches.py:85",
@@ -1824,14 +1849,12 @@ def phase_animate(dev, no_loops_run_dir: Path):
     return launches
 
 
-def phase_bow_index(dev):
-    """The device BoW index at map scale against a float64 host ranking."""
+def index_scene():
+    """The bow_index phase's map: 50,000 seeded sparse, L2-normalised
+    histograms with four planted exact ties, frame ids 0, 3, 6, ..., and 100
+    queries (the planted rows first)."""
     import numpy as np
-    import torch
 
-    from mvslam_tpu_torch.loopclosure.device_index import DeviceBoWIndex
-
-    phase_t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     # Sparse non-negative rows, like word histograms: a few dozen of the
     # 256 words carry the mass.
@@ -1845,34 +1868,59 @@ def phase_bow_index(dev):
         (q / np.linalg.norm(q)).astype(np.float32)
         for q in rng.gamma(0.15, size=(INDEX_QUERIES - len(planted), INDEX_VOCAB))
     ]
+    return hist, ids, planted, queries
 
-    t0 = time.perf_counter()
-    index = DeviceBoWIndex.from_histograms(ids, hist, device=dev)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    hist64 = hist.astype(np.float64)
+
+def index_against_host(index, queries, hist64, planted, phase: str) -> int:
+    """Each query's top-16 rows against a float64 host ranking by
+    (-score, row): the scores are their rows' scores, the set is the host's
+    wherever its 16th and 17th scores differ by more than 1e-6, and a row
+    may differ from the host's at a position only where their host scores
+    differ, by at most 1e-6 (those positions are counted and returned);
+    each planted tie comes back lower row first."""
+    import numpy as np
+
     excused = 0
+    rows = len(hist64)
     for q in queries:
         scores = hist64 @ q.astype(np.float64)
-        order = np.lexsort((np.arange(INDEX_ROWS), -scores))[: INDEX_TOPK + 1]
+        order = np.lexsort((np.arange(rows), -scores))[: INDEX_TOPK + 1]
         host = order[:INDEX_TOPK]
         got = index.topk(q, k=INDEX_TOPK)
         got_rows = [i // 3 for i, _ in got]
         if len(got) != INDEX_TOPK or max(abs(s - scores[r]) for (_, s), r in zip(got, got_rows)) > 1e-5:
-            raise AssertionError("bow_index: a returned score is not its row's score")
+            raise AssertionError(f"{phase}: a returned score is not its row's score")
         if scores[order[INDEX_TOPK - 1]] - scores[order[INDEX_TOPK]] > 1e-6 and set(got_rows) != set(host.tolist()):
-            raise AssertionError(f"bow_index: top-{INDEX_TOPK} set {got_rows} != host {host.tolist()}")
+            raise AssertionError(f"{phase}: top-{INDEX_TOPK} set {got_rows} != host {host.tolist()}")
         for pos, (row, ref) in enumerate(zip(got_rows, host.tolist())):
             if row == ref:
                 continue
             if abs(scores[row] - scores[ref]) > 1e-6 or scores[row] == scores[ref]:
                 # a different row although the host's scores are clearly apart, or exactly tied
-                raise AssertionError(f"bow_index: position {pos}: row {row} != host's {ref}")
+                raise AssertionError(f"{phase}: position {pos}: row {row} != host's {ref}")
             excused += 1
     for (src, dst), q in zip(planted, queries):
         top2 = [i // 3 for i, _ in index.topk(q, k=2)]
         if top2[0] != min(src, dst):
-            raise AssertionError(f"bow_index: planted tie ({src}, {dst}) came back as {top2}")
+            raise AssertionError(f"{phase}: planted tie ({src}, {dst}) came back as {top2}")
+    return excused
+
+
+def phase_bow_index(dev):
+    """The device BoW index at map scale against a float64 host ranking."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.loopclosure.device_index import DeviceBoWIndex
+
+    phase_t0 = time.perf_counter()
+    hist, ids, planted, queries = index_scene()
+
+    t0 = time.perf_counter()
+    index = DeviceBoWIndex.from_histograms(ids, hist, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    excused = index_against_host(index, queries, hist.astype(np.float64), planted, "bow_index")
 
     q_dev = queries[-1]
     event_ms = median_ms(lambda: index.topk(q_dev, k=INDEX_TOPK), warmup=3, iters=50)
@@ -1925,6 +1973,264 @@ def phase_bow_index(dev):
         "grown_from": 1024, "grown_rows": INDEX_GROWN_ROWS, "grown_capacity": grown.capacity, "add_ms": add_ms,
         "grown_equals_bulk": True, "phase_seconds": time.perf_counter() - phase_t0,
     })
+
+
+def ba_scene(W=5, P=1024, seed=0):
+    """The reference tests' synthetic BA window (``synthetic_ba_problem``):
+    W poses 0.5 apart along x, yawing 0.02 rad each, P points at depths 6 to
+    14 seen by every pose with 0.5 px noise, the poses after the first two
+    and every point perturbed. Returns (poses_init, points_init, observations
+    of the port, K)."""
+    import numpy as np
+
+    from mvslam_tpu_torch.backend.bundle_adjustment import Observation
+    from mvslam_tpu_torch.geometry import lie_np
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]])
+    points = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(6, 14, P)], axis=1)
+    poses = np.stack([lie_np.se3_params_to_matrix(np.array([0.5 * w, 0, 0, 0, 0.02 * w, 0])) for w in range(W)])
+    observations = []
+    for w in range(W):
+        T_cw = np.linalg.inv(poses[w])
+        cam = points @ T_cw[:3, :3].T + T_cw[:3, 3]
+        uv = (cam[:, :2] / cam[:, 2:]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        uv += rng.normal(scale=0.5, size=uv.shape)
+        observations += [Observation(w, p, uv[p]) for p in range(P)]
+    poses_init = poses.copy()
+    for w in range(2, W):  # the first two poses fix the gauge
+        poses_init[w][:3, 3] += rng.normal(scale=0.02, size=3)
+    return poses_init, points + rng.normal(scale=0.05, size=points.shape), observations, K
+
+
+def ransac_scene(n=2048, seed=0):
+    """The reference's sharded-RANSAC problem (parallel_checks.py) at the
+    main path's 2,048 correspondences: points at depths 4 to 10, a 0.5
+    baseline, 25% of the matches moved 50 px; normalised coordinates."""
+    import numpy as np
+
+    from mvslam_tpu_torch.geometry import lie_np
+
+    rng = np.random.default_rng(seed)
+    pts3d = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1, 1, n), rng.uniform(4, 10, n)], 1)
+    R = lie_np.so3_exp(np.asarray([0.03, -0.02, 0.01]))
+    cam2 = pts3d @ R.T + np.array([0.5, 0.1, 0.05])
+    uv1 = (pts3d[:, :2] / pts3d[:, 2:]) * 500.0 + [320, 240]
+    uv2 = (cam2[:, :2] / cam2[:, 2:]) * 500.0 + [320, 240]
+    uv2[rng.choice(n, n // 4, replace=False)] += 50.0
+    return ((uv1 - [320, 240]) / 500.0).astype(np.float32), ((uv2 - [320, 240]) / 500.0).astype(np.float32)
+
+
+def logical_mesh(size, devices=None):
+    """``size`` slots over ``cuda:0`` (a logical mesh on one card), or over
+    the given devices."""
+    from mvslam_tpu_torch.core.sharding import Mesh
+
+    return Mesh(devices or ["cuda:0"] * size, ("data",))
+
+
+def tree_equal(a, b) -> bool:
+    """Every tensor leaf of two (nested) NamedTuples bit-equal."""
+    import torch
+
+    if isinstance(a, tuple):
+        return all(tree_equal(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_mesh(host_frames, dev):
+    """``mvslam_tpu_torch.parallel`` on logical meshes over ``cuda:0``: the
+    meshed superwindow, batched pairs, sharded RANSAC, BA, pose graph and
+    index against their unsharded runs; launches of the two meshed
+    tracking paths, whose kernels run at window/size and 8/size frames."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.backend.bundle_adjustment import BundleAdjustmentConfig, run_bundle_adjustment
+    from mvslam_tpu_torch.backend.pose_graph import PoseGraph3D
+    from mvslam_tpu_torch.backend.solvers import SolverConfig, solve_problem
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.loopclosure.device_index import DeviceBoWIndex
+    from mvslam_tpu_torch.ops.ransac import RansacConfig, ransac_essential
+    from mvslam_tpu_torch.parallel import mesh as pm
+    from mvslam_tpu_torch.slam import tracking
+
+    phase_t0 = time.perf_counter()
+    fc = FeaturePipelineConfig(num_features=NUM_FEATURES, max_matches=512)
+    pc = RobustPoseEstimatorConfig(num_hypotheses=512, mesh_invariant=True)
+    K = torch.tensor(BENCH_K, dtype=torch.float32, device=dev)
+    key = prng.key(0, device=dev)
+    n_sw = WINDOW * WINDOWS_PER_CALL
+    first = torch.from_numpy(host_frames[0]).to(dev)
+    frames = torch.from_numpy(np.stack(host_frames[1 : 1 + n_sw])).to(dev)
+    prev = tracking.bootstrap_frame(first, fc)
+    out = {"card": "logical meshes over cuda:0, one H100: not a multi-card scaling figure"}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, int(torch.cuda.max_memory_allocated(dev))
+
+    # 1. The meshed superwindow against the unsharded one (both pinned),
+    # after one untimed window of the pinned path.
+    tracking.pull_scalars(tracking.track_window(key, prev, frames[:WINDOW], K, fc, pc, start_index=1)[1])
+    (ref_last, ref), ref_s, ref_peak = timed(
+        lambda: tracking.track_superwindow(key, prev, frames, K, fc, pc, window=WINDOW, start_index=1))
+    ref_scal = ref.scalars_packed.cpu().numpy()
+    if int((ref_scal[..., 23] > 0).sum()) != n_sw:
+        raise AssertionError("mesh: the unsharded superwindow did not track every frame")
+    reset_launches()
+    sw = {"unsharded": {"fps": n_sw / ref_s, "peak_mem_bytes": ref_peak}}
+    runs = {}
+    for size in (1, 2, 4, 8):
+        (last, track), secs, peak = timed(lambda: pm.track_superwindow_meshed(
+            logical_mesh(size), key, prev, frames, K, fc, pc, window=WINDOW, start_index=1))
+        runs[size] = (last, track)
+        scal = track.scalars_packed.cpu().numpy()
+        integer_equal = (
+            tree_equal(last, ref_last) and tree_equal(track.features_packed, ref.features_packed)
+            and torch.equal(track.match_mask, ref.match_mask) and np.array_equal(scal[..., 23:25], ref_scal[..., 23:25])
+            and np.array_equal(scal[..., 12], ref_scal[..., 12])
+        )
+        pose_err = float(np.abs(scal[..., :12] - ref_scal[..., :12]).max())
+        if not integer_equal or pose_err > 1e-3 or int((scal[..., 23] > 0).sum()) != n_sw:
+            raise AssertionError(f"mesh: superwindow at size {size}: integer stages equal {integer_equal}, "
+                                 f"pose err {pose_err}, tracked {int((scal[..., 23] > 0).sum())}/{n_sw}")
+        sw[str(size)] = {"fps": n_sw / secs, "peak_mem_bytes": peak, "integer_stages_bit_equal": True,
+                         "use_essential_bit_equal": True, "pose_max_abs_err": pose_err,
+                         "bit_equal_to_unsharded": bool(tree_equal(track, ref))}
+    again = pm.track_superwindow_meshed(logical_mesh(4), key, prev, frames, K, fc, pc, window=WINDOW, start_index=1)
+    if not (tree_equal(again[1], runs[4][1]) and tree_equal(again[0], runs[4][0])):
+        raise AssertionError("mesh: two superwindow runs at size 4 differ")
+    sw["run_to_run_bit_equal_size_4"] = True
+    out["superwindow"] = {"frames": n_sw, "window": WINDOW, "sizes": sw}
+
+    # 2. Batched pairs (i, i+1) of 8 bench frames.
+    pairs_prev, pairs_next = frames[:8], frames[1:9]
+    pairs = {}
+    for size in (1, 2, 4, 8):
+        pairs[size] = timed(lambda: pm.batched_track_pairs(logical_mesh(size), pairs_prev, pairs_next, K, fc, pc))
+    launches = read_launches("mesh")
+    base_feats, base_track = pairs[1][0]
+    pair_report = {}
+    for size, ((feats, track), secs, peak) in pairs.items():
+        same = tree_equal(feats, base_feats) and all(
+            torch.equal(getattr(track, f), getattr(base_track, f))
+            for f in ("match_mask", "num_matches", "num_features", "matched_p1", "matched_p2"))
+        err = float((track.scalars_packed[..., :12] - base_track.scalars_packed[..., :12]).abs().max())
+        if not same or err > 1e-3 or int((track.num_matches > 0).sum()) != 8:
+            raise AssertionError(f"mesh: batched pairs at size {size}: features/matches equal {same}, pose err {err}")
+        pair_report[str(size)] = {"ms": 1e3 * secs, "peak_mem_bytes": peak, "pose_max_abs_err": err}
+    out["batched_pairs"] = {"pairs": 8, "features_and_matches_bit_equal": True, "sizes": pair_report}
+
+    # 3. Hypothesis-sharded RANSAC, 512 hypotheses on 2,048 correspondences.
+    n1, n2 = (torch.from_numpy(x).to(dev) for x in ransac_scene())
+    mask = torch.ones(n1.shape[0], dtype=torch.bool, device=dev)
+    cfg = RansacConfig(num_hypotheses=512, threshold=2.0 / 500.0, mesh_invariant=True)
+    single = ransac_essential(key, n1, n2, mask, cfg)
+    if not (bool(single.success) and int(single.num_inliers) > 1400):
+        raise AssertionError(f"mesh: unsharded RANSAC found {int(single.num_inliers)} inliers")
+    ransac = {"unsharded_pinned_ms": median_ms(lambda: ransac_essential(key, n1, n2, mask, cfg)),
+              "unsharded_default_ms": median_ms(
+                  lambda: ransac_essential(key, n1, n2, mask, RansacConfig(num_hypotheses=512, threshold=2.0 / 500.0)))}
+    for size in (1, 2, 4, 8):
+        mesh = logical_mesh(size)
+        res = pm.sharded_ransac_essential(mesh, key, n1, n2, mask, cfg)
+        if not (torch.equal(res.model, single.model) and torch.equal(res.inliers, single.inliers)):
+            raise AssertionError(f"mesh: sharded RANSAC at size {size} differs from the unsharded pinned run")
+        ransac[str(size)] = {"ms": median_ms(lambda: pm.sharded_ransac_essential(mesh, key, n1, n2, mask, cfg))}
+    out["ransac"] = {"hypotheses": 512, "correspondences": int(n1.shape[0]), "inliers": int(single.num_inliers),
+                     "bit_equal_all_sizes_and_unsharded": True, **ransac}
+
+    # 4. Observation-sharded BA: 5 poses x 1,024 points.
+    poses0, points0, obs, Kba = ba_scene()
+    ba_cfg = BundleAdjustmentConfig(max_iterations=10)
+    run_bundle_adjustment(poses0, points0, obs, Kba, ba_cfg, device=dev)  # untimed warm-up
+    (ba_ref, ba_s, _) = timed(lambda: run_bundle_adjustment(poses0, points0, obs, Kba, ba_cfg, device=dev))
+    if ba_ref.diagnostics.conditioning_tripped:
+        raise AssertionError("mesh: the unsharded BA tripped its conditioning gate")
+    ba = {"unsharded_ms": 1e3 * ba_s}
+    for size in (1, 2, 4):
+        res, secs, peak = timed(lambda: pm.run_bundle_adjustment_sharded(logical_mesh(size), poses0, points0, obs, Kba,
+                                                                          ba_cfg))
+        d_pose = float(np.abs(res.poses - ba_ref.poses).max())
+        d_pts = float(np.abs(res.points - ba_ref.points).max())
+        d_cost = abs(res.diagnostics.final_cost - ba_ref.diagnostics.final_cost) / max(1.0, ba_ref.diagnostics.final_cost)
+        if res.diagnostics.conditioning_tripped or d_pose > 1e-4 or d_pts > 1e-3 or d_cost > 1e-2:
+            raise AssertionError(f"mesh: sharded BA at size {size}: poses {d_pose}, points {d_pts}, cost {d_cost}")
+        ba[str(size)] = {"ms": 1e3 * secs, "peak_mem_bytes": peak, "pose_max_abs_err": d_pose,
+                         "point_max_abs_err": d_pts, "cost_rel_err": d_cost}
+    again = pm.run_bundle_adjustment_sharded(logical_mesh(4), poses0, points0, obs, Kba, ba_cfg)
+    if not (np.array_equal(again.poses, res.poses) and np.array_equal(again.points, res.points)):
+        raise AssertionError("mesh: two sharded BA runs at size 4 differ")
+    out["ba"] = {"poses": 5, "points": 1024, "observations": len(obs), "initial_cost": ba_ref.diagnostics.initial_cost,
+                 "final_cost": ba_ref.diagnostics.final_cost, "run_to_run_bit_equal_size_4": True, **ba}
+
+    # 5. Factor-sharded pose graph: the pose_graph phase's 1,000 poses.
+    _, chain, loop_edges = pose_graph_scene()
+    graph = PoseGraph3D.from_pose_matrices(chain, device=dev)
+    for i, j, T in loop_edges:
+        graph.add_loop_matrix(i, j, T, weight=5.0)
+    problem = graph._build_graph().build_problem(device=dev)
+    pg_cfg = SolverConfig(max_iterations=15, damping=1e-4, method="cholesky")
+    solve_problem(problem, pg_cfg)  # untimed warm-up
+    pg_ref, pg_s, _ = timed(lambda: solve_problem(problem, pg_cfg))
+    pg = {"unsharded_ms": 1e3 * pg_s}
+    for size in (1, 2, 4):
+        res, secs, peak = timed(lambda: pm.solve_problem_sharded(logical_mesh(size), problem, pg_cfg))
+        d_x = float(np.abs(res.x - pg_ref.x).max())
+        d_cost = abs(res.final_cost - pg_ref.final_cost) / max(1.0, pg_ref.final_cost)
+        # Stated here: x within 1e-3 (positions on a 20-unit circle) and the
+        # final cost within 1e-3 relative.
+        if not np.isfinite(res.x).all() or d_x > 1e-3 or d_cost > 1e-3:
+            raise AssertionError(f"mesh: sharded pose graph at size {size}: x {d_x}, cost {d_cost}")
+        again = pm.solve_problem_sharded(logical_mesh(size), problem, pg_cfg)
+        if not np.array_equal(again.x, res.x):
+            raise AssertionError(f"mesh: two sharded pose-graph solves at size {size} differ")
+        pg[str(size)] = {"ms": 1e3 * secs, "peak_mem_bytes": peak, "x_max_abs_err": d_x, "cost_rel_err": d_cost,
+                         "run_to_run_bit_equal": True}
+    out["pose_graph"] = {"poses": len(chain), "factors": problem.num_factors, "method": "cholesky",
+                         "iterations": 15, "tolerance": {"x_abs": 1e-3, "cost_rel": 1e-3},
+                         "final_cost": pg_ref.final_cost, **pg}
+
+    # 6. The index over 4 slots on the bow_index phase's 50,000 histograms.
+    hist, ids, planted, queries = index_scene()
+    mesh4 = logical_mesh(4)
+    plain = DeviceBoWIndex.from_histograms(ids, hist, device=dev)
+    index = DeviceBoWIndex.from_histograms(ids, hist, mesh=mesh4)
+    excused = index_against_host(index, queries, hist.astype(np.float64), planted, "mesh index")
+    same_as_unsharded = sum(
+        [i for i, _ in index.topk(q, k=INDEX_TOPK)] == [i for i, _ in plain.topk(q, k=INDEX_TOPK)] for q in queries)
+    grown = DeviceBoWIndex(INDEX_VOCAB, 1024, mesh=mesh4)
+    for i in range(INDEX_GROWN_ROWS):
+        grown.add(ids[i], hist[i])
+    bulk = DeviceBoWIndex.from_histograms(ids[:INDEX_GROWN_ROWS], hist[:INDEX_GROWN_ROWS], mesh=mesh4)
+    if grown.capacity != INDEX_GROWN_ROWS or not torch.equal(grown._buf, bulk._buf):
+        raise AssertionError("mesh index: the grown index's rows differ from a bulk load's")
+    for q in queries[:20]:
+        a, b = grown.topk(q, k=INDEX_TOPK), bulk.topk(q, k=INDEX_TOPK)
+        if [i for i, _ in a] != [i for i, _ in b] or max(abs(x[1] - y[1]) for x, y in zip(a, b)) > 1e-6:
+            raise AssertionError("mesh index: the grown index answers differently from the bulk load")
+    out["index"] = {
+        "rows": INDEX_ROWS, "slots": 4, "near_tie_positions_excused": excused, "equal_to_host_ranking": True,
+        "queries_identical_to_unsharded": same_as_unsharded, "queries": len(queries), "grown_equals_bulk": True,
+        "query_ms": median_ms(lambda: index.topk(queries[-1], k=INDEX_TOPK), warmup=3, iters=50),
+        "unsharded_query_ms": median_ms(lambda: plain.topk(queries[-1], k=INDEX_TOPK), warmup=3, iters=50),
+    }
+    if torch.cuda.device_count() > 1:  # reported, not gated
+        cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        mesh = logical_mesh(len(cards), cards)
+        if WINDOW % mesh.size == 0:
+            _, secs, _ = timed(lambda: pm.track_superwindow_meshed(mesh, key, prev, frames, K, fc, pc, window=WINDOW,
+                                                                    start_index=1))
+            out["distinct_cards"] = {"devices": cards, "superwindow_fps": n_sw / secs}
+    emit({"phase": "mesh", **out, "launches": launches, "phase_seconds": time.perf_counter() - phase_t0})
+    return launches
 
 
 def phase_main(host_frames, build_s: float):
@@ -2064,6 +2370,7 @@ def main() -> int:
     phase_eval(ingest_runs)
     by_path["animate"] = phase_animate(torch.device("cuda", 0), offline_no_loops)
     phase_bow_index(torch.device("cuda", 0))
+    by_path["mesh"] = phase_mesh(host_frames, torch.device("cuda", 0))
     if any(name.split(".")[0] in ("jax", "mvslam_tpu") for name in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     for record in (k1, k2):

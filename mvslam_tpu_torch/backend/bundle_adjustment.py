@@ -17,7 +17,10 @@ assembly is a deterministic segment sum over tables built on the host from
 the observation indices. The LM iterations are a Python loop with
 ``torch.where`` masking and no host read inside; the result comes back in
 one packed fetch. Observations and points are padded to power-of-two
-budgets, as in the reference.
+budgets, as in the reference. ``observation_sharding`` splits the padded
+observations over a mesh: each slot linearizes its block and assembles
+partial normal equations with tables built over that block; the partials
+are added in slot order on slot 0's device, where the Schur solve runs.
 
 ``WindowBundleAdjuster`` builds the observations from a keyframe window:
 consecutive pairs are matched (cross-checked Hamming) and RANSAC-gated on
@@ -41,6 +44,7 @@ from torch.func import jacfwd, vmap
 from mvslam_tpu_torch.backend.segments import segment_sum, segment_table
 from mvslam_tpu_torch.backend.solvers import _solve_pos
 from mvslam_tpu_torch.core import prng
+from mvslam_tpu_torch.core.sharding import NamedSharding, add_in_order, blocks
 from mvslam_tpu_torch.geometry.lie import se3_matrix, so3_exp, so3_log
 from mvslam_tpu_torch.geometry.linalg import inv3x3
 from mvslam_tpu_torch.geometry.projection import normalize_pixels
@@ -136,11 +140,29 @@ def _project(pose_param: torch.Tensor, point: torch.Tensor, K: torch.Tensor) -> 
     return torch.stack([u, v])
 
 
+class ObservationBlock(NamedTuple):
+    """One slot's observations (a block of the padded budget) on its device,
+    with segment tables built over the block alone."""
+
+    obs_pose: torch.Tensor
+    obs_point: torch.Tensor
+    obs_uv: torch.Tensor
+    obs_mask: torch.Tensor
+    K: torch.Tensor
+    tables: BATables
+
+
 def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config: BundleAdjustmentConfig,
-             num_poses: int, tables: BATables):
+             num_poses: int, tables: BATables, shards: Optional[List[ObservationBlock]] = None):
     """The LM iterations on the inputs' device. Returns (pose params,
     points, initial cost, final cost, eig_min, eig_max), the eigenvalues
-    those of the data term's reduced system at the first linearization."""
+    those of the data term's reduced system at the first linearization.
+
+    ``shards`` (default: the one block of all observations on the inputs'
+    device): per-slot blocks whose linearizations, costs and partial
+    normal equations are added in slot order on the inputs' device."""
+    if shards is None:
+        shards = [ObservationBlock(obs_pose, obs_point, obs_uv, obs_mask, K, tables)]
     W = num_poses
     P = points0.shape[0]
     dtype, device = pose_params0.dtype, pose_params0.device
@@ -157,43 +179,58 @@ def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, co
     pose_free = torch.as_tensor(free_np, dtype=dtype, device=device)
     free = pose_free.reshape(-1)
     prior_w2 = torch.full((), config.pose_prior_weight**2, dtype=dtype, device=device)
-    mf = obs_mask.to(dtype)
     eye3 = torch.eye(3, dtype=dtype, device=device)
     eye6 = torch.eye(6, dtype=dtype, device=device)
     eyeW = torch.eye(W, dtype=dtype, device=device)
 
-    def residuals(pp, pts):
-        r = vmap(_project, in_dims=(0, 0, None))(pp[obs_pose], pts[obs_point], K) - obs_uv
-        return torch.where(obs_mask[:, None], r, torch.zeros_like(r))
+    def data_cost(pp, pts, blk: ObservationBlock):
+        """Σ ρ over one block's valid observations."""
+        dl, dl2 = delta.to(blk.K.device), d2.to(blk.K.device)
+        r = vmap(_project, in_dims=(0, 0, None))(pp[blk.obs_pose], pts[blk.obs_point], blk.K) - blk.obs_uv
+        r = torch.where(blk.obs_mask[:, None], r, torch.zeros_like(r))
+        s = (r * r).sum(dim=-1)
+        rho = torch.where(s <= dl2, s, 2.0 * dl * torch.sqrt(torch.maximum(s, dl2)) - dl2)
+        return torch.where(blk.obs_mask, rho, torch.zeros_like(rho)).sum()
 
     def cost_of(pp, pts):
-        r = residuals(pp, pts)
-        s = (r * r).sum(dim=-1)
-        rho = torch.where(s <= d2, s, 2.0 * delta * torch.sqrt(torch.maximum(s, d2)) - d2)
-        data = 0.5 * torch.where(obs_mask, rho, torch.zeros_like(rho)).sum()
+        data = 0.5 * add_in_order(
+            [data_cost(pp.to(b.K.device), pts.to(b.K.device), b) for b in shards], device
+        )
         return data + 0.5 * prior_w2 * (pose_free * (pp - pose_params0) ** 2).sum()
 
-    def lin_single(pose_p, point, uv, m):
-        def res_fn(a, b):
-            return (_project(a, b, K) - uv) * m
+    def assemble(pp, pts, blk: ObservationBlock):
+        """One block's linearization and partial (B, C, E, gp, gx)."""
+        Kb = blk.K
 
-        Jp, Jx = jacfwd(res_fn, argnums=(0, 1))(pose_p, point)  # (2, 6), (2, 3)
-        return res_fn(pose_p, point), Jp, Jx
+        def lin_single(pose_p, point, uv, m):
+            def res_fn(a, b):
+                return (_project(a, b, Kb) - uv) * m
+
+            Jp, Jx = jacfwd(res_fn, argnums=(0, 1))(pose_p, point)  # (2, 6), (2, 3)
+            return res_fn(pose_p, point), Jp, Jx
+
+        mf = blk.obs_mask.to(dtype)
+        r, Jp, Jx = vmap(lin_single)(pp[blk.obs_pose], pts[blk.obs_point], blk.obs_uv, mf)
+        s = (r * r).sum(dim=-1)
+        dl, dl2 = delta.to(Kb.device), d2.to(Kb.device)
+        w_irls = torch.where(s <= dl2, torch.ones_like(s), dl / torch.sqrt(torch.maximum(s, dl2))) * mf
+        Jp_w = Jp * w_irls[:, None, None]
+        Jx_w = Jx * w_irls[:, None, None]
+        t = blk.tables
+        return (
+            segment_sum(torch.einsum("ori,orj->oij", Jp, Jp_w), t.pose),  # (W, 6, 6)
+            segment_sum(torch.einsum("ori,orj->oij", Jx, Jx_w), t.point),  # (P, 3, 3)
+            segment_sum(torch.einsum("ori,orj->oij", Jp, Jx_w), t.pair).reshape(W, P, 6, 3),
+            segment_sum(torch.einsum("ori,or->oi", Jp_w, r), t.pose),
+            segment_sum(torch.einsum("ori,or->oi", Jx_w, r), t.point),
+        )
 
     init_cost = cost_of(pose_params0, points0)
     pp, pts, old_cost = pose_params0, points0, init_cost
     lam = torch.full((), config.damping, dtype=dtype, device=device)
     for it in range(config.max_iterations):
-        r, Jp, Jx = vmap(lin_single)(pp[obs_pose], pts[obs_point], obs_uv, mf)
-        s = (r * r).sum(dim=-1)
-        w_irls = torch.where(s <= d2, torch.ones_like(s), delta / torch.sqrt(torch.maximum(s, d2))) * mf
-        Jp_w = Jp * w_irls[:, None, None]
-        Jx_w = Jx * w_irls[:, None, None]
-        B = segment_sum(torch.einsum("ori,orj->oij", Jp, Jp_w), tables.pose)  # (W, 6, 6)
-        C = segment_sum(torch.einsum("ori,orj->oij", Jx, Jx_w), tables.point)  # (P, 3, 3)
-        E = segment_sum(torch.einsum("ori,orj->oij", Jp, Jx_w), tables.pair).reshape(W, P, 6, 3)
-        gp = segment_sum(torch.einsum("ori,or->oi", Jp_w, r), tables.pose)
-        gx = segment_sum(torch.einsum("ori,or->oi", Jx_w, r), tables.point)
+        parts = [assemble(pp.to(b.K.device), pts.to(b.K.device), b) for b in shards]
+        B, C, E, gp, gx = (add_in_order([p[i] for p in parts], device) for i in range(5))
         # Pose prior, masked by pose_free like the cost.
         B = B + prior_w2 * (pose_free[:, :, None] * eye6) + lam * eye6
         gp = gp + prior_w2 * pose_free * (pp - pose_params0)
@@ -226,11 +263,12 @@ def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, co
     return pp, pts, init_cost, old_cost, eig_min, eig_max
 
 
-def _ba_core_packed(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables):
+def _ba_core_packed(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables,
+                    shards=None):
     """:func:`_ba_core` with everything the host needs in ONE float32
     tensor: ``[init, final, eig_min, eig_max, poses(W·16), points(P·3)]``."""
     pp, pts, init_cost, final_cost, eig_min, eig_max = _ba_core(
-        pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables
+        pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables, shards
     )
     head = torch.stack([init_cost, final_cost, eig_min, eig_max])
     return torch.cat([head, _params_to_pose(pp).reshape(-1), pts.reshape(-1)]).to(torch.float32)
@@ -244,9 +282,18 @@ def run_bundle_adjustment(
     config: Optional[BundleAdjustmentConfig] = None,
     max_observations: Optional[int] = None,
     device="cuda",
+    observation_sharding: Optional[NamedSharding] = None,
 ) -> BAResult:
     """Refine window poses and points on ``device`` (the card unless the
-    caller asks for the CPU); one upload, one fetch."""
+    caller asks for the CPU); one upload, one fetch.
+
+    ``observation_sharding`` splits the padded observation budget over its
+    mesh (the budget must divide by the mesh size): slot s linearizes its
+    block on its device; everything else runs on slot 0's device, which
+    then replaces ``device``. Results match the unsharded solve to float
+    tolerance and are bit-equal run to run for a fixed mesh (see
+    :func:`mvslam_tpu_torch.parallel.mesh.run_bundle_adjustment_sharded`).
+    """
     config = config or BundleAdjustmentConfig()
     W = poses.shape[0]
     P = points.shape[0]
@@ -271,20 +318,29 @@ def run_bundle_adjustment(
     points_padded = np.zeros((pbudget, 3), np.float32)
     points_padded[:P] = points
 
-    def put(a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+    def put(a, dtype=None, on=None):
+        return torch.as_tensor(a, dtype=dtype, device=device if on is None else on)
 
+    if observation_sharding is None:
+        obs_args = (put(obs_pose), put(obs_point), put(obs_uv), put(obs_mask))
+        tables, shards = ba_tables(obs_pose, obs_point, obs_mask, W, pbudget, device), None
+    else:
+        mesh = observation_sharding.mesh
+        if budget % mesh.size:
+            raise ValueError(f"observation budget ({budget}) must divide by mesh size {mesh.size}")
+        device = mesh.devices[0]
+        obs_args, tables = (None, None, None, None), None
+        shards = [
+            ObservationBlock(
+                put(obs_pose[lo:hi], on=dev), put(obs_point[lo:hi], on=dev), put(obs_uv[lo:hi], on=dev),
+                put(obs_mask[lo:hi], on=dev), put(K, torch.float32, on=dev),
+                ba_tables(obs_pose[lo:hi], obs_point[lo:hi], obs_mask[lo:hi], W, pbudget, dev),
+            )
+            for (lo, hi), dev in zip(blocks(budget, mesh.size), mesh.devices)
+        ]
     packed = _ba_core_packed(
-        _pose_params(put(poses, torch.float32)),
-        put(points_padded),
-        put(obs_pose),
-        put(obs_point),
-        put(obs_uv),
-        put(obs_mask),
-        put(K, torch.float32),
-        config,
-        W,
-        ba_tables(obs_pose, obs_point, obs_mask, W, pbudget, device),
+        _pose_params(put(poses, torch.float32)), put(points_padded), *obs_args, put(K, torch.float32),
+        config, W, tables, shards,
     ).cpu().numpy()  # ONE device→host copy for scalars, poses and points
     init_cost, final_cost, eig_min, eig_max = (float(x) for x in packed[:4])
     refined_poses = packed[4 : 4 + W * 16].reshape(W, 4, 4).astype(np.float64)

@@ -14,7 +14,9 @@ fetch. Two linear solves: dense Cholesky (``cholesky_ex`` +
 ``cholesky_solve``; a factorisation that fails yields NaN, as the
 reference's does) and matrix-free block-Jacobi-preconditioned CG. Every
 assembly is a deterministic segment sum (``backend.segments``) over tables
-built once per solve from the host's copy of the edges. The reference's
+built once per solve from the host's copy of the edges; with a
+``factor_sharding`` each slot of a mesh assembles its block of factors
+and the partials are added in slot order. The reference's
 power-of-two bucket padding exists to avoid XLA recompiles and is not
 ported.
 """
@@ -35,6 +37,7 @@ from mvslam_tpu_torch.backend.factor_graph import (
     make_residual_fn,
 )
 from mvslam_tpu_torch.backend.segments import segment_sum, segment_table
+from mvslam_tpu_torch.core.sharding import NamedSharding, add_in_order, blocks, concat
 
 
 @dataclass(frozen=True)
@@ -142,8 +145,9 @@ def _edge_tables(edges: torch.Tensor, n: int, dense: bool) -> _EdgeTables:
     return _EdgeTables(node, segment_table(inverse, len(uniq), edges.device), torch.from_numpy(uniq).to(edges.device))
 
 
-def _scatter_dense(tables: _EdgeTables, Ji, Jj, res, w_irls, anchor_free, damping, n, d):
-    """Assemble the dense damped normal equations with anchors projected out."""
+def _dense_partial(tables: _EdgeTables, Ji, Jj, res, w_irls):
+    """One edge block's JᵀWJ blocks, summed per (row, column) pair id of
+    ``tables.pair_ids``, and its per-node JᵀWr (n, d)."""
     A = Ji * w_irls[:, None, None]
     B = Jj * w_irls[:, None, None]
     blocks = torch.cat(
@@ -154,15 +158,33 @@ def _scatter_dense(tables: _EdgeTables, Ji, Jj, res, w_irls, anchor_free, dampin
             torch.einsum("eri,erj->eij", Jj, B),
         ]
     )
-    H = Ji.new_zeros((n * n, d, d))
-    H[tables.pair_ids] = segment_sum(blocks, tables.pair)  # unique ids: plain writes
-    H = H.reshape(n, n, d, d).permute(0, 2, 1, 3).reshape(n * d, n * d)
     g = torch.cat([torch.einsum("eri,er->ei", A, res), torch.einsum("eri,er->ei", B, res)])
-    b = -segment_sum(g, tables.node).reshape(-1)
+    return segment_sum(blocks, tables.pair), segment_sum(g, tables.node)
+
+
+def _dense_finish(pair_ids, pair_sums, g_nodes, anchor_free, damping, n, d):
+    """The damped normal equations with anchors projected out, from each
+    edge block's pair sums (added into one (n·n, d, d) buffer in block
+    order; each block's ids are unique) and the summed JᵀWr."""
+    H = pair_sums[0].new_zeros((n * n, d, d))
+    if len(pair_sums) == 1:
+        H[pair_ids[0]] = pair_sums[0]  # unique ids: plain writes
+    else:
+        for ids, sums in zip(pair_ids, pair_sums):
+            ids = ids.to(H.device)
+            H[ids] = H[ids] + sums.to(H.device)
+    H = H.reshape(n, n, d, d).permute(0, 2, 1, 3).reshape(n * d, n * d)
+    b = -g_nodes.reshape(-1)
     free = anchor_free
     H = H * free[:, None] * free[None, :]
     H = H + torch.diag(torch.where(free > 0.5, torch.full_like(free, damping), torch.ones_like(free)))
     return H, b * free
+
+
+def _scatter_dense(tables: _EdgeTables, Ji, Jj, res, w_irls, anchor_free, damping, n, d):
+    """Assemble the dense damped normal equations with anchors projected out."""
+    pair_sums, g_nodes = _dense_partial(tables, Ji, Jj, res, w_irls)
+    return _dense_finish([tables.pair_ids], [pair_sums], g_nodes, anchor_free, damping, n, d)
 
 
 def _solve_pos(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -197,52 +219,95 @@ def _cg_solve(matvec, b, precond, iterations: int, tol: float):
     return x
 
 
-def gauss_newton_core(x0, edges, measurements, weights, anchor_mask, model_name: str, config: SolverConfig):
+class _EdgeBlock(NamedTuple):
+    """One slot's factors on its device, with tables built over them alone."""
+
+    edges: torch.Tensor
+    measurements: torch.Tensor
+    weights: torch.Tensor
+    tables: _EdgeTables
+
+
+def gauss_newton_core(x0, edges, measurements, weights, anchor_mask, model_name: str, config: SolverConfig,
+                      factor_sharding: Optional[NamedSharding] = None):
     """The whole GN/LM optimisation on the inputs' device: returns
-    (x_final, final_cost, per-iteration outputs, histogram edges, counts)."""
+    (x_final, final_cost, per-iteration outputs, histogram edges, counts).
+
+    ``factor_sharding`` splits the factors over its mesh (their count must
+    divide by its size): slot s linearizes its block on its device and
+    assembles partial normal equations with tables built over the block;
+    the partials are added in slot order on x0's device, where the solve
+    runs."""
     model = MODELS[model_name]
     d = model.dim
     n = x0.shape[0]
+    home = x0.device
     residual_all = make_residual_fn(model)
     linearize_all = make_linearize_fn(model)
     loss = RobustLoss(config.loss, config.loss_scale)
     dense = config.method == "cholesky"
-    tables = _edge_tables(edges, n, dense)
+    if factor_sharding is None:
+        parts = [_EdgeBlock(edges, measurements, weights, _edge_tables(edges, n, dense))]
+    else:
+        mesh = factor_sharding.mesh
+        parts = []
+        for (lo, hi), dev in zip(blocks(edges.shape[0], mesh.size, "factor count"), mesh.devices):
+            e = edges[lo:hi].to(dev)
+            parts.append(_EdgeBlock(e, measurements[lo:hi].to(dev), weights[lo:hi].to(dev), _edge_tables(e, n, dense)))
     anchor_free = torch.where(anchor_mask.repeat_interleave(d), 0.0, 1.0).to(x0.dtype)
     free_nd = anchor_free.reshape(n, d)
-    ei, ej = edges[:, 0], edges[:, 1]
+
+    def add(values):
+        return add_in_order(values, home)
 
     def cost_of(x):
-        res = residual_all(x, edges, measurements, weights)
-        return 0.5 * loss.rho((res * res).sum(dim=-1)).sum()
+        return 0.5 * add([
+            loss.rho((r * r).sum(dim=-1)).sum()
+            for r in (residual_all(x.to(p.edges.device), p.edges, p.measurements, p.weights) for p in parts)
+        ])
 
     x = x0
     done = torch.zeros((), dtype=torch.bool, device=x0.device)
     outs = []
     for _ in range(config.max_iterations):
-        res, Ji, Jj = linearize_all(x, edges, measurements, weights)
-        s = (res * res).sum(dim=-1)
-        w_irls = loss.weight(s)
-        cost = 0.5 * loss.rho(s).sum()
+        lin = []
+        for p in parts:
+            res, Ji, Jj = linearize_all(x.to(p.edges.device), p.edges, p.measurements, p.weights)
+            s = (res * res).sum(dim=-1)
+            lin.append((res, Ji, Jj, loss.weight(s), loss.rho(s).sum()))
+        cost = 0.5 * add([rho for *_, rho in lin])
         if dense:
-            H, b = _scatter_dense(tables, Ji, Jj, res, w_irls, anchor_free, config.damping, n, d)
+            dense_parts = [_dense_partial(p.tables, Ji, Jj, res, w) for p, (res, Ji, Jj, w, _) in zip(parts, lin)]
+            H, b = _dense_finish([p.tables.pair_ids for p in parts], [h for h, _ in dense_parts],
+                                 add([g for _, g in dense_parts]), anchor_free, config.damping, n, d)
             delta = _solve_pos(H, b)
         else:
-            A = Ji * w_irls[:, None, None]
-            B = Jj * w_irls[:, None, None]
-            D = segment_sum(
-                torch.cat([torch.einsum("eri,erj->eij", Ji, A), torch.einsum("eri,erj->eij", Jj, B)]), tables.node
-            )
+            diag_parts, g_parts = [], []
+            for p, (res, Ji, Jj, w, _) in zip(parts, lin):
+                A = Ji * w[:, None, None]
+                B = Jj * w[:, None, None]
+                diag_parts.append(segment_sum(
+                    torch.cat([torch.einsum("eri,erj->eij", Ji, A), torch.einsum("eri,erj->eij", Jj, B)]), p.tables.node
+                ))
+                g_parts.append(segment_sum(
+                    torch.cat([torch.einsum("eri,er->ei", A, res), torch.einsum("eri,er->ei", B, res)]), p.tables.node
+                ))
+            D = add(diag_parts)
             Dinv = torch.linalg.inv_ex(D + config.damping * torch.eye(d, dtype=x.dtype, device=x.device))[0]
 
             def matvec(v_flat):
                 v = (v_flat * anchor_free).reshape(n, d)
-                Jv = torch.einsum("erj,ej->er", Ji, v[ei]) + torch.einsum("erj,ej->er", Jj, v[ej])
-                Jv = Jv * w_irls[:, None]
-                y = segment_sum(
-                    torch.cat([torch.einsum("eri,er->ei", Ji, Jv), torch.einsum("eri,er->ei", Jj, Jv)]), tables.node
-                )
-                y = y * free_nd + config.damping * v
+                ys = []
+                for p, (_, Ji, Jj, w, _) in zip(parts, lin):
+                    vp = v.to(p.edges.device)
+                    ei, ej = p.edges[:, 0], p.edges[:, 1]
+                    Jv = torch.einsum("erj,ej->er", Ji, vp[ei]) + torch.einsum("erj,ej->er", Jj, vp[ej])
+                    Jv = Jv * w[:, None]
+                    ys.append(segment_sum(
+                        torch.cat([torch.einsum("eri,er->ei", Ji, Jv), torch.einsum("eri,er->ei", Jj, Jv)]),
+                        p.tables.node,
+                    ))
+                y = add(ys) * free_nd + config.damping * v
                 return (y + v_flat.reshape(n, d) * (1.0 - free_nd)).reshape(-1)  # anchors act as identity
 
             def precond(r_flat):
@@ -250,8 +315,7 @@ def gauss_newton_core(x0, edges, measurements, weights, anchor_mask, model_name:
                 z = torch.einsum("nij,nj->ni", Dinv, r)
                 return (z * free_nd + r * (1.0 - free_nd)).reshape(-1)
 
-            g = torch.cat([torch.einsum("eri,er->ei", A, res), torch.einsum("eri,er->ei", B, res)])
-            b = (-segment_sum(g, tables.node) * free_nd).reshape(-1)
+            b = (-add(g_parts) * free_nd).reshape(-1)
             delta = _cg_solve(matvec, b, precond, config.cg_iterations, config.cg_tolerance)
 
         grad_norm = torch.linalg.vector_norm(b)
@@ -265,7 +329,7 @@ def gauss_newton_core(x0, edges, measurements, weights, anchor_mask, model_name:
     final_cost = cost_of(x)
     stacked = _IterationOutputs(*(torch.stack(col) for col in zip(*outs)))
 
-    res = residual_all(x, edges, measurements, weights)
+    res = concat([residual_all(x.to(p.edges.device), p.edges, p.measurements, p.weights) for p in parts], home)
     rn = torch.linalg.vector_norm(res, dim=-1)
     bins = config.histogram_bins
     stop = torch.maximum(rn.max(), torch.full_like(rn[0], 1e-12)) * (1.0 + 1e-6)
@@ -276,27 +340,37 @@ def gauss_newton_core(x0, edges, measurements, weights, anchor_mask, model_name:
     return x, final_cost, stacked, bin_edges, counts
 
 
-def gauss_newton_core_packed(x0, edges, measurements, weights, anchor_mask, model_name: str, config: SolverConfig):
+def gauss_newton_core_packed(x0, edges, measurements, weights, anchor_mask, model_name: str, config: SolverConfig,
+                             factor_sharding: Optional[NamedSharding] = None):
     """:func:`gauss_newton_core` with every host-bound output in ONE flat
     float32 tensor: ``[final_cost, x(n·d), cost(I), grad(I), step(I),
     active(I), bin_edges(B+1), counts(B)]`` with I = max_iterations and
     B = histogram_bins."""
     x_final, final_cost, outs, bin_edges, counts = gauss_newton_core(
-        x0, edges, measurements, weights, anchor_mask, model_name, config
+        x0, edges, measurements, weights, anchor_mask, model_name, config, factor_sharding
     )
     parts = [final_cost.reshape(1), x_final.reshape(-1), outs.cost, outs.grad_norm, outs.step_norm,
              outs.active, bin_edges, counts]
     return torch.cat([p.to(torch.float32) for p in parts])
 
 
-def solve_problem(problem: GraphProblem, config: SolverConfig) -> SolverResult:
+def solve_problem(
+    problem: GraphProblem, config: SolverConfig, factor_sharding: Optional[NamedSharding] = None
+) -> SolverResult:
     """Run the core on the problem's device and package the diagnostics
-    (one device→host copy)."""
+    (one device→host copy). ``factor_sharding`` splits the factors over its
+    mesh (see :func:`gauss_newton_core`); the solve then runs on slot 0's
+    device (:func:`mvslam_tpu_torch.parallel.mesh.solve_problem_sharded`
+    pads the factors to a mesh multiple)."""
     if problem.num_factors == 0 or problem.num_variables == 0:
         return SolverResult(problem.x0.detach().cpu().numpy(), 0.0, 0.0, 0, True, 0)
+    x0, anchor_mask = problem.x0, problem.anchor_mask
+    if factor_sharding is not None:
+        home = factor_sharding.mesh.devices[0]
+        x0, anchor_mask = x0.to(home), anchor_mask.to(home)
     buf = gauss_newton_core_packed(
-        problem.x0, problem.edges, problem.measurements, problem.weights, problem.anchor_mask,
-        problem.model_name, config,
+        x0, problem.edges, problem.measurements, problem.weights, anchor_mask,
+        problem.model_name, config, factor_sharding,
     ).cpu().numpy()
     n, d = problem.x0.shape
     I, B = config.max_iterations, config.histogram_bins

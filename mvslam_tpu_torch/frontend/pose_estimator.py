@@ -21,6 +21,7 @@ from mvslam_tpu_torch.core import prng
 from mvslam_tpu_torch.geometry.epipolar import (
     decompose_essential,
     decompose_homography,
+    _matvec3,
     sampson_error,
     triangulate_normalized,
 )
@@ -51,7 +52,10 @@ class RobustPoseEstimatorConfig:
     homography_selection_share: float = 0.42
     homography_force_share: float = 0.52
     refit_rounds: int = 2
-    # Kept for config parity; see ops.ransac.RansacConfig.mesh_invariant.
+    # True = the dual-model RANSAC and the selection's support votes run
+    # through the order-pinned forms (ops.ransac.RansacConfig.mesh_invariant):
+    # a pair gets the same bits in any batch of pairs. The meshed tracking
+    # paths (parallel/mesh.py) force it.
     mesh_invariant: bool = False
 
     def __post_init__(self):
@@ -208,14 +212,15 @@ def estimate_pose_device(
     sigma_sq = (e_thresh_px / 1.96) ** 2
     cutoff = (3.84 * sigma_sq)[..., None]
     fx_ = fx[..., None]
-    d2_e = sampson_error(res_e.model, n1, n2) * fx_ * fx_
+    pinned = config.mesh_invariant
+    d2_e = sampson_error(res_e.model, n1, n2, pinned) * fx_ * fx_
 
     def _transfer_sq(M, src, dst):
-        y = torch.cat([src, torch.ones_like(src[..., :1])], dim=-1) @ M.transpose(-1, -2)
+        y = _matvec3(M, torch.cat([src, torch.ones_like(src[..., :1])], dim=-1), pinned)
         w = y[..., 2:3]
         w = torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
         d = y[..., :2] / w - dst
-        return (d * d).sum(dim=-1)
+        return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] if pinned else (d * d).sum(dim=-1)
 
     d2_h_fwd = _transfer_sq(res_h.model, n1, n2) * fx_ * fx_
     d2_h_bwd = _transfer_sq(inv3x3(res_h.model), n2, n1) * fx_ * fx_

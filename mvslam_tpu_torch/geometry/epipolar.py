@@ -2,9 +2,13 @@
 
 Port of ``mvslam_tpu/geometry/epipolar.py``.
 Everything is batched over leading axes (hypotheses, frames) and works in
-normalised camera coordinates. One reduction form throughout: the
-reference's ``pinned`` order-pinned variants exist only for bit-equality
-across TPU meshes.
+normalised camera coordinates. The solvers and scorers take ``pinned``
+(default False): the order-pinned forms are elementwise only — explicit
+``(m0·x0 + m1·x1) + m2·x2`` products, outer products and
+:func:`~mvslam_tpu_torch.geometry.linalg.tree_sum` — with no ``matmul`` and
+no ``sum`` over a reduced axis, whose accumulation order CUDA picks by
+shape and alignment. A hypothesis then gets the same bits in a mesh block
+as in the whole batch (``RansacConfig.mesh_invariant``).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from mvslam_tpu_torch.geometry.linalg import det3x3, inv3x3, smallest_eigvec_psd, svd3x3
+from mvslam_tpu_torch.geometry.linalg import det3x3, inv3x3, smallest_eigvec_psd, svd3x3, tree_sum
 from mvslam_tpu_torch.geometry.projection import hartley_normalization
 
 # Inverse-iteration counts for the null-space solves (the reference's
@@ -27,17 +31,42 @@ def _homogeneous(pts: torch.Tensor) -> torch.Tensor:
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
 
 
-def _matvec3(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 3) applied to (..., N, 3) rows."""
-    return x @ M.transpose(-1, -2)
+def _matvec3(M: torch.Tensor, x: torch.Tensor, pinned: bool = False) -> torch.Tensor:
+    """(..., 3, 3) applied to (..., N, 3) rows; ``pinned``: written out as
+    ``(m0·x0 + m1·x1) + m2·x2`` per output row."""
+    if not pinned:
+        return x @ M.transpose(-1, -2)
+    cols = [x[..., j] for j in range(3)]
+    rows = [
+        (M[..., i, 0, None] * cols[0] + M[..., i, 1, None] * cols[1]) + M[..., i, 2, None] * cols[2]
+        for i in range(3)
+    ]
+    return torch.stack(rows, dim=-1)
+
+
+def _mm3(A: torch.Tensor, B: torch.Tensor, pinned: bool = False) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3, 3); ``pinned``: each entry written out as
+    ``(a0·b0 + a1·b1) + a2·b2``."""
+    if not pinned:
+        return A @ B
+    return (A[..., :, 0, None] * B[..., None, 0, :] + A[..., :, 1, None] * B[..., None, 1, :]) + (
+        A[..., :, 2, None] * B[..., None, 2, :]
+    )
+
+
+def _gram_tree(A: torch.Tensor) -> torch.Tensor:
+    """AᵀA (..., D, D) of A (..., N, D) as outer products summed by an
+    order-pinned balanced tree over the rows (the reference's form)."""
+    return tree_sum(A[..., :, :, None] * A[..., :, None, :], -3)
 
 
 def _smallest_singular_vector(
-    A: torch.Tensor, rescue: bool = True, iterations: int = HYPOTHESIS_EIGVEC_ITERS
+    A: torch.Tensor, rescue: bool = True, iterations: int = HYPOTHESIS_EIGVEC_ITERS, pinned: bool = False
 ) -> torch.Tensor:
     """Right singular vector of A (..., R, D) with the smallest singular
-    value: inverse iteration on AᵀA."""
-    return smallest_eigvec_psd(A.transpose(-1, -2) @ A, iterations=iterations, rescue=rescue)
+    value: inverse iteration on AᵀA (``pinned``: :func:`_gram_tree`)."""
+    gram = _gram_tree(A) if pinned else A.transpose(-1, -2) @ A
+    return smallest_eigvec_psd(gram, iterations=iterations, rescue=rescue, pinned=pinned)
 
 
 def essential_rows(
@@ -52,65 +81,70 @@ def essential_rows(
     return A
 
 
-def _invsqrt3x3_psd(C: torch.Tensor, iterations: int = 5) -> torch.Tensor:
+def _invsqrt3x3_psd(C: torch.Tensor, iterations: int = 5, pinned: bool = False) -> torch.Tensor:
     """Newton–Schulz C^(−1/2) for (..., 3, 3) SPD with spectrum ⊂ (0, 3)."""
     eye = torch.eye(3, dtype=C.dtype, device=C.device).expand(C.shape)
     X = eye
     for _ in range(iterations):
-        X = 0.5 * (X @ (3.0 * eye - C @ (X @ X)))
+        X = 0.5 * _mm3(X, 3.0 * eye - _mm3(C, _mm3(X, X, pinned), pinned), pinned)
     return X
 
 
-def essential_from_vec(e: torch.Tensor, exact_rank2: bool) -> torch.Tensor:
+def essential_from_vec(e: torch.Tensor, exact_rank2: bool, pinned: bool = False) -> torch.Tensor:
     """E (..., 3, 3) from the null-space vector (..., 9).
 
     ``exact_rank2=False`` (hypothesis batches): only project out the
     smallest right-singular direction, E(I − v₃v₃ᵀ) (Sampson scoring is
     scale-invariant). ``exact_rank2=True`` (refits): the full σ = (1, 1, 0)
     spectrum via (E₂/σ̂)·C^(−1/2) with C = E₂ᵀE₂/σ̂² + v₃v₃ᵀ (see the
-    reference for the derivation).
+    reference for the derivation). ``pinned``: every 3×3 product written
+    out (:func:`_mm3`).
     """
     E = e.reshape(*e.shape[:-1], 3, 3)
+    Et = E.transpose(-1, -2)
     v3 = smallest_eigvec_psd(
-        E.transpose(-1, -2) @ E,
+        _mm3(Et, E, pinned),
         iterations=HYPOTHESIS_EIGVEC_ITERS if not exact_rank2 else REFIT_EIGVEC_ITERS,
         rescue=False,
+        pinned=pinned,
     )
-    E2 = E - (E @ v3[..., :, None]) * v3[..., None, :]
+    Ev3 = _matvec3(E, v3[..., None, :], pinned).transpose(-1, -2) if pinned else E @ v3[..., :, None]
+    E2 = E - Ev3 * v3[..., None, :]
     if not exact_rank2:
         return E2
-    A = E2.transpose(-1, -2) @ E2
+    A = _mm3(E2.transpose(-1, -2), E2, pinned)
     s2 = (0.5 * ((A[..., 0, 0] + A[..., 1, 1]) + A[..., 2, 2])).clamp_min(1e-20)
     C = A / s2[..., None, None] + v3[..., :, None] * v3[..., None, :]
     C = C + 1e-6 * torch.eye(3, dtype=E.dtype, device=E.device)
-    return (E2 / torch.sqrt(s2)[..., None, None]) @ _invsqrt3x3_psd(C)
+    return _mm3(E2 / torch.sqrt(s2)[..., None, None], _invsqrt3x3_psd(C, pinned=pinned), pinned)
 
 
 def eight_point_essential(
-    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
 ) -> torch.Tensor:
     """Essential matrix from ≥ 8 normalised correspondences (..., N, 2).
 
     Optional ``weights`` (..., N) scale each constraint row (an inlier
     mask refits on inliers without dynamic shapes); a refit takes the
     rescued null-space solve and the full σ = (1, 1, 0) spectrum, a
-    hypothesis batch neither.
+    hypothesis batch neither. ``pinned``: the order-pinned forms.
     """
     refit = weights is not None
     e = _smallest_singular_vector(
         essential_rows(pts1, pts2, weights),
         rescue=refit,
         iterations=REFIT_EIGVEC_ITERS if refit else HYPOTHESIS_EIGVEC_ITERS,
+        pinned=pinned,
     )
-    return essential_from_vec(e, exact_rank2=refit)
+    return essential_from_vec(e, exact_rank2=refit, pinned=pinned)
 
 
-def sampson_error(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+def sampson_error(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, pinned: bool = False) -> torch.Tensor:
     """First-order geometric (Sampson) error of x2ᵀ E x1: (..., N) squared."""
     x1 = _homogeneous(pts1)
     x2 = _homogeneous(pts2)
-    Ex1 = _matvec3(E, x1)
-    Etx2 = _matvec3(E.transpose(-1, -2), x2)
+    Ex1 = _matvec3(E, x1, pinned)
+    Etx2 = _matvec3(E.transpose(-1, -2), x2, pinned)
     prod = x2 * Ex1
     num = ((prod[..., 0] + prod[..., 1]) + prod[..., 2]) ** 2
     den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
@@ -212,11 +246,11 @@ def triangulate_normalized(
 
 
 def homography_rows(
-    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Hartley-normalised DLT constraint rows: ((..., 2N, 9), T1, T2)."""
-    n1, T1 = hartley_normalization(pts1, weights)
-    n2, T2 = hartley_normalization(pts2, weights)
+    n1, T1 = hartley_normalization(pts1, weights, pinned=pinned)
+    n2, T2 = hartley_normalization(pts2, weights, pinned=pinned)
     x, y = n1[..., 0], n1[..., 1]
     u, v = n2[..., 0], n2[..., 1]
     zero = torch.zeros_like(x)
@@ -229,41 +263,47 @@ def homography_rows(
     return torch.cat([row1, row2], dim=-2), T1, T2
 
 
-def homography_from_vec(h: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+def homography_from_vec(h: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, pinned: bool = False) -> torch.Tensor:
     """H (..., 3, 3) from the null-space vector (..., 9), denormalised,
     scaled to H[2, 2] = 1."""
     Hn = h.reshape(*h.shape[:-1], 3, 3)
-    H = inv3x3(T2) @ Hn @ T1
+    H = _mm3(_mm3(inv3x3(T2), Hn, pinned), T1, pinned)
     scale = H[..., 2:3, 2:3]
     return H / torch.where(scale.abs() < 1e-12, torch.full_like(scale, 1e-12), scale)
 
 
 def dlt_homography(
-    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
 ) -> torch.Tensor:
     """Hartley-normalised DLT homography from ≥ 4 correspondences
-    (..., N, 2), scaled to H[2, 2] = 1; ``weights`` as in
+    (..., N, 2), scaled to H[2, 2] = 1; ``weights`` and ``pinned`` as in
     :func:`eight_point_essential`."""
-    A, T1, T2 = homography_rows(pts1, pts2, weights)
+    A, T1, T2 = homography_rows(pts1, pts2, weights, pinned=pinned)
     refit = weights is not None
     h = _smallest_singular_vector(
-        A, rescue=refit, iterations=REFIT_EIGVEC_ITERS if refit else HYPOTHESIS_EIGVEC_ITERS
+        A, rescue=refit, iterations=REFIT_EIGVEC_ITERS if refit else HYPOTHESIS_EIGVEC_ITERS, pinned=pinned
     )
-    return homography_from_vec(h, T1, T2)
+    return homography_from_vec(h, T1, T2, pinned=pinned)
 
 
-def symmetric_transfer_error(H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+def symmetric_transfer_error(
+    H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, pinned: bool = False
+) -> torch.Tensor:
     """Forward + backward squared transfer error of a homography: (..., N)."""
     H_inv = inv3x3(H)
 
     def transfer(M, pts):
-        y = _matvec3(M, _homogeneous(pts))
+        y = _matvec3(M, _homogeneous(pts), pinned)
         w = y[..., 2:3]
         w = torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
         return y[..., :2] / w
 
     fwd = transfer(H, pts1) - pts2
     bwd = transfer(H_inv, pts2) - pts1
+    if pinned:
+        return (fwd[..., 0] * fwd[..., 0] + fwd[..., 1] * fwd[..., 1]) + (
+            bwd[..., 0] * bwd[..., 0] + bwd[..., 1] * bwd[..., 1]
+        )
     return (fwd * fwd).sum(dim=-1) + (bwd * bwd).sum(dim=-1)
 
 

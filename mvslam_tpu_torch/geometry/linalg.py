@@ -4,8 +4,11 @@ Port of ``mvslam_tpu/geometry/linalg.py``: adjugate inverses, Cardano
 eigendecompositions and inverse iteration instead of iterative LAPACK
 routines, so thousands of tiny systems (a RANSAC hypothesis batch) run as
 a handful of batched elementwise ops. All functions take any leading batch
-axes. Reductions are plain sums: the reference's order-pinned ``tree_sum``
-exists only for bit-equality across TPU meshes.
+axes. Reductions are plain sums, unless a caller asks for the order-pinned
+form (``pinned=True``, :func:`tree_sum`): a mesh splits a batch into
+blocks, and on CUDA the order in which ``sum`` and ``matmul`` accumulate
+follows the shape and alignment of their input, so only elementwise
+arithmetic gives a hypothesis the same bits in a block as in the batch.
 """
 
 from __future__ import annotations
@@ -14,6 +17,30 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along ``dim`` as an explicit balanced tree of slice adds.
+
+    The order of a reduction kernel's additions is the library's choice and
+    changes with the input's shape (a mesh block is a slice of the batch);
+    the pairwise adds here fix it in the program itself, so a row sums to
+    the same bits in any batch, on any device. Zero-padded to the next
+    power of two; roundoff O(log N · eps).
+    """
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    if n <= 1:
+        return x.sum(dim=dim)
+    m = 1 << (n - 1).bit_length()  # next power of two >= n
+    if m != n:
+        pad = list(x.shape)
+        pad[dim] = m - n
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    while m > 1:
+        m //= 2
+        x = x.narrow(dim, 0, m) + x.narrow(dim, m, m)
+    return x.squeeze(dim)
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -176,17 +203,23 @@ def _invert(M: torch.Tensor):
     return _gauss_jordan_inverse_with_pivots(M)
 
 
-def smallest_eigvec_psd(S: torch.Tensor, iterations: int = 10, rescue: bool = True) -> torch.Tensor:
+def smallest_eigvec_psd(
+    S: torch.Tensor, iterations: int = 10, rescue: bool = True, pinned: bool = False
+) -> torch.Tensor:
     """Unit eigenvector of the smallest eigenvalue of a PSD matrix (batched).
 
     Inverse iteration with an explicit inverse of S + ridge, the ridge
     1e-7·tr(S): above the f32 roundoff that can leave AᵀA slightly
     indefinite, below the informative spectral gap. ``rescue`` re-inverts
     with a 100x ridge where the first inverse is non-finite, exceeds the
-    bound the ridge implies, or had a non-positive pivot.
+    bound the ridge implies, or had a non-positive pivot. ``pinned`` sums
+    the trace and the iteration's matvecs and norms with :func:`tree_sum`
+    (the reference always does), so each matrix gets the same bits in any
+    batch.
     """
     n = S.shape[-1]
-    trace = torch.diagonal(S, dim1=-2, dim2=-1).sum(dim=-1)
+    rsum = tree_sum if pinned else (lambda x, dim: x.sum(dim=dim))
+    trace = rsum(torch.diagonal(S, dim1=-2, dim2=-1), -1)
     eye = _eye(n, S)
     ridge = (1e-7 * trace + 1e-12)[..., None, None] * eye
     S_inv, pivot_sig = _invert(S + ridge)
@@ -198,7 +231,7 @@ def smallest_eigvec_psd(S: torch.Tensor, iterations: int = 10, rescue: bool = Tr
 
     x = torch.linspace(1.0, 1.3, n, dtype=S.dtype, device=S.device).expand(*S.shape[:-2], n)
     for _ in range(iterations):
-        x = (S_inv * x[..., None, :]).sum(dim=-1)
-        norm = torch.sqrt((x * x).sum(dim=-1))[..., None]
+        x = rsum(S_inv * x[..., None, :], -1)
+        norm = torch.sqrt(rsum(x * x, -1))[..., None]
         x = x / norm.clamp_min(1e-30)
     return x

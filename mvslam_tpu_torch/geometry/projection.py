@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from mvslam_tpu_torch.geometry.linalg import smallest_eigvec_psd
+from mvslam_tpu_torch.geometry.linalg import smallest_eigvec_psd, tree_sum
 
 
 def make_K(fx: float, fy: float, cx: float, cy: float, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -95,14 +95,32 @@ def normalize_pixels(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 
 def hartley_normalization(
-    pts: torch.Tensor, weights: torch.Tensor | None = None
+    pts: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hartley point normalisation: zero (weighted) mean, mean distance √2.
 
     pts (..., N, 2), optional weights (..., N). Returns (normalised
     points, (..., 3, 3) conditioning transform T) with ``x_norm = T @ x``.
+    ``pinned`` accumulates every statistic with ``tree_sum`` and written-out
+    adds (elementwise only), so a point set gets the same bits in any batch.
     """
-    if weights is None:
+    if pinned:
+
+        def norm(c):
+            return torch.sqrt(c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1])
+
+        if weights is None:
+            n = pts.shape[-2]
+            mean = tree_sum(pts, -2)[..., None, :] / n
+            centered = pts - mean
+            mean_dist = tree_sum(norm(centered), -1) / n
+        else:
+            wsum = tree_sum(weights, -1)[..., None]
+            wsum = torch.where(wsum < 1e-12, torch.full_like(wsum, 1e-12), wsum)
+            mean = tree_sum(pts * weights[..., None], -2)[..., None, :] / wsum[..., None]
+            centered = pts - mean
+            mean_dist = tree_sum(norm(centered) * weights, -1) / wsum[..., 0]
+    elif weights is None:
         mean = pts.mean(dim=-2, keepdim=True)
         centered = pts - mean
         mean_dist = torch.sqrt((centered * centered).sum(dim=-1)).mean(dim=-1)

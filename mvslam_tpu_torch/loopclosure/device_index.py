@@ -10,8 +10,10 @@ Here the histogram matrix lives in device memory as a preallocated
 stable top-k on the device, so only 2·k scalars travel device→host. Row
 inserts write in place. When the buffer fills, capacity doubles (one
 allocation and one copy on the device) instead of failing mid-sequence.
-Sharding the capacity axis over several devices is not ported (the
-reference's ``mesh`` argument).
+With a ``mesh`` (``core.sharding.Mesh``) the capacity axis is split into
+its slots' blocks: each slot holds, scores and top-k's its block on its
+device, an insert writes only the owning slot's block, and the per-slot
+candidates are merged on slot 0's device by (−score, global row).
 
 Frame ids must be inserted in strictly increasing order (enforced). That
 makes the stable top-k's lowest-index tie-break identical to the host
@@ -27,17 +29,25 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from mvslam_tpu_torch.core.sharding import Mesh, concat
 from mvslam_tpu_torch.ops.fast import topk_stable
 
 logger = logging.getLogger(__name__)
 
 
-def _topk_scores(buf: torch.Tensor, hist: torch.Tensor, count: int, k: int):
-    scores = buf @ hist  # (capacity,)
-    # Mask unfilled rows to -inf so they never rank.
-    idx = torch.arange(buf.shape[0], device=buf.device)
+def _topk_scores(buf: torch.Tensor, hist: torch.Tensor, count: int, k: int, offset: int = 0):
+    """Stable top-k of one block's scores; rows ``offset + i >= count``
+    are unfilled and masked to -inf so they never rank."""
+    scores = buf @ hist  # (rows,)
+    idx = torch.arange(offset, offset + buf.shape[0], device=buf.device)
     scores = torch.where(idx < count, scores, torch.full_like(scores, -float("inf")))
     return topk_stable(scores, k)
+
+
+def _round_up(capacity: int, mesh: Optional[Mesh]) -> int:
+    if mesh is not None and capacity % mesh.size:
+        capacity += mesh.size - capacity % mesh.size
+    return int(capacity)
 
 
 class DeviceBoWIndex:
@@ -45,34 +55,71 @@ class DeviceBoWIndex:
 
     Rows must be L2-normalised histograms (``assign_histogram`` output);
     cosine similarity is then the plain dot product.
+
+    ``mesh``: optional one-axis :class:`~mvslam_tpu_torch.core.sharding.Mesh`
+    whose slots hold contiguous, equal blocks of the capacity axis (the
+    capacity is rounded up to a multiple of its size); it replaces
+    ``device``. The top-k equals the unsharded index's ranking: each slot's
+    candidates come in (−score, row) order and the merge keeps slot order
+    among equal scores, so ties that straddle blocks break by global row.
     """
 
-    def __init__(self, vocab_size: int, capacity: int, device="cuda") -> None:
+    def __init__(self, vocab_size: int, capacity: int, device="cuda", mesh: Optional[Mesh] = None) -> None:
         if capacity <= 0:
             raise ValueError("capacity must be positive")
         self.vocab_size = int(vocab_size)
-        self.capacity = int(capacity)
-        self.device = torch.device(device)
-        self._buf = torch.zeros((self.capacity, self.vocab_size), dtype=torch.float32, device=self.device)
+        self._mesh = mesh
+        self.capacity = _round_up(capacity, mesh)
+        self.device = torch.device(device) if mesh is None else mesh.devices[0]
+        self._blocks = self._zeros(self.capacity)
         self.frame_ids: List[int] = []
+
+    def _slots(self) -> List[torch.device]:
+        return [self.device] if self._mesh is None else list(self._mesh.devices)
+
+    def _zeros(self, capacity: int) -> List[torch.Tensor]:
+        slots = self._slots()
+        rows = capacity // len(slots)
+        return [torch.zeros((rows, self.vocab_size), dtype=torch.float32, device=dev) for dev in slots]
+
+    @property
+    def _rows(self) -> int:
+        """Rows per block."""
+        return self._blocks[0].shape[0]
+
+    @property
+    def _buf(self) -> torch.Tensor:
+        """The whole (capacity, V) matrix (on a mesh: a copy on slot 0's
+        device)."""
+        return concat(self._blocks, self.device)
 
     def __len__(self) -> int:
         return len(self.frame_ids)
 
     def grow(self, new_capacity: int) -> None:
-        """Reallocate to ``new_capacity`` rows (device-side copy)."""
+        """Reallocate to ``new_capacity`` rows (device-side copies; on a
+        mesh each new block takes its rows from the old blocks that held
+        them)."""
+        new_capacity = _round_up(new_capacity, self._mesh)
         if new_capacity <= self.capacity:
             return
-        new = torch.zeros((int(new_capacity), self.vocab_size), dtype=torch.float32, device=self.device)
-        new[: self.capacity] = self._buf
-        self._buf = new
+        new, old_rows = self._zeros(new_capacity), self._rows
+        new_rows = new[0].shape[0]
+        for s, blk in enumerate(new):
+            lo, hi = s * new_rows, (s + 1) * new_rows
+            for t, old in enumerate(self._blocks):
+                a, b = max(lo, t * old_rows), min(hi, (t + 1) * old_rows)
+                if a < b:
+                    blk[a - lo : b - lo] = old[a - t * old_rows : b - t * old_rows].to(blk.device)
+        self._blocks = new
         logger.info(
             "device BoW index grown", extra={"from": self.capacity, "to": int(new_capacity)}
         )
         self.capacity = int(new_capacity)
 
     def add(self, frame_id: int, histogram: np.ndarray) -> None:
-        """Insert one L2-normalised histogram row (in-place row write).
+        """Insert one L2-normalised histogram row (in-place row write into
+        the owning slot's block).
 
         Grows the buffer (doubling) when full instead of failing: a long
         sequence must never crash mid-run on index capacity. Frame ids
@@ -87,24 +134,43 @@ class DeviceBoWIndex:
             )
         if len(self.frame_ids) >= self.capacity:
             self.grow(self.capacity * 2)
-        self._buf[len(self.frame_ids)] = self._row(histogram)
+        slot, row = divmod(len(self.frame_ids), self._rows)
+        blk = self._blocks[slot]
+        blk[row] = self._row(histogram, blk.device)
         self.frame_ids.append(frame_id)
 
-    def _row(self, histogram) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(histogram, np.float32), device=self.device)
+    def _row(self, histogram, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(histogram, np.float32), device=self.device if device is None else device)
+
+    def _placed(self, histogram) -> dict:
+        """The query row, copied once to each distinct device of the slots."""
+        return {dev: self._row(histogram, dev) for dev in dict.fromkeys(self._slots())}
 
     def topk(self, histogram: np.ndarray, k: int = 5) -> List[Tuple[int, float]]:
         """Best-k (frame_id, cosine score), ties broken by lower frame id.
 
-        Matvec + masked stable top-k on the device; only 2·k scalars are
-        fetched, in one copy. Exactness: rows are inserted in frame-id
-        order, so the lowest-index tie-break IS the host's
-        ``(-score, frame_id)`` order, even for ties across the cutoff.
+        Matvec + masked stable top-k on the device (per slot on a mesh,
+        merged on slot 0's device); only 2·k scalars are fetched, in one
+        copy. Exactness: rows are inserted in frame-id order, so the
+        lowest-index tie-break IS the host's ``(-score, frame_id)`` order,
+        even for ties across the cutoff.
         """
         if not self.frame_ids:
             return []
         k_eff = min(int(k), self.capacity)
-        scores, idx = _topk_scores(self._buf, self._row(histogram), len(self.frame_ids), k_eff)
+        count, rows = len(self.frame_ids), self._rows
+        if self._mesh is None:
+            scores, idx = _topk_scores(self._blocks[0], self._row(histogram), count, k_eff)
+        else:
+            query = self._placed(histogram)
+            cand = [
+                _topk_scores(blk, query[blk.device], count, min(k_eff, rows), s * rows)
+                for s, blk in enumerate(self._blocks)
+            ]
+            scores = concat([c[0] for c in cand], self.device)
+            idx = concat([c[1] + s * rows for s, c in enumerate(cand)], self.device)
+            scores, pos = topk_stable(scores, k_eff)  # equal scores keep slot order: lower global row first
+            idx = idx[pos]
         # One fetch: float64 holds both the float32 scores and the row ids.
         packed = torch.stack([scores.to(torch.float64), idx.to(torch.float64)]).cpu().numpy()
         out = [
@@ -119,7 +185,8 @@ class DeviceBoWIndex:
         """Full (len(self),) score vector (for parity tests/diagnostics)."""
         if not self.frame_ids:
             return np.zeros(0, np.float32)
-        s = self._buf @ self._row(histogram)
+        query = self._placed(histogram)
+        s = concat([blk @ query[blk.device] for blk in self._blocks], self.device)
         return s[: len(self.frame_ids)].cpu().numpy()
 
     @classmethod
@@ -129,8 +196,10 @@ class DeviceBoWIndex:
         histograms: np.ndarray,
         capacity: Optional[int] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ) -> "DeviceBoWIndex":
-        """Bulk-load a snapshot's histogram matrix (one host→device copy).
+        """Bulk-load a snapshot's histogram matrix (one host→device copy
+        per slot).
 
         ``frame_ids`` must be strictly increasing (see class docstring).
         """
@@ -142,10 +211,14 @@ class DeviceBoWIndex:
             )
         histograms = np.asarray(histograms, np.float32)
         n, vocab = histograms.shape
-        cap = int(capacity) if capacity is not None else max(n, 1)
+        cap = _round_up(int(capacity) if capacity is not None else max(n, 1), mesh)
         if cap < n:
             raise ValueError(f"capacity {cap} < {n} histograms")
-        index = cls(vocab, cap, device=device)
-        index._buf[:n] = torch.from_numpy(np.ascontiguousarray(histograms)).to(index.device)
+        index = cls(vocab, cap, device=device, mesh=mesh)
+        rows = index._rows
+        for s, blk in enumerate(index._blocks):
+            part = histograms[s * rows : min(n, (s + 1) * rows)]
+            if len(part):
+                blk[: len(part)] = torch.from_numpy(np.ascontiguousarray(part)).to(blk.device)
         index.frame_ids = ids
         return index

@@ -139,6 +139,12 @@ def orientations_from_patches(patches: torch.Tensor, valid: torch.Tensor) -> tor
     return torch.where(valid, angle, torch.zeros((), dtype=angle.dtype, device=angle.device))
 
 
+def compute_orientations(image: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Standalone orientation API: extracts the keypoints' tiles, then
+    :func:`orientations_from_patches`."""
+    return orientations_from_patches(extract_patches(image, xy), valid)
+
+
 def _float_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``jnp.mod`` for floats: truncated remainder shifted to y's sign."""
     r = torch.fmod(x, y)

@@ -6,8 +6,11 @@ over any leading axes.
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def rgb_to_gray(frame: torch.Tensor) -> torch.Tensor:
@@ -54,3 +57,27 @@ def downsample2(image: torch.Tensor) -> torch.Tensor:
     return 0.25 * (
         img[..., 0::2, 0::2] + img[..., 1::2, 0::2] + img[..., 0::2, 1::2] + img[..., 1::2, 1::2]
     )
+
+
+def build_pyramid(image: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
+    """A plain 2x pyramid: a list of ``num_levels`` images, level 0 at full
+    resolution, each next level :func:`downsample2` of the last."""
+    levels = [image]
+    for _ in range(num_levels - 1):
+        levels.append(downsample2(levels[-1]))
+    return levels
+
+
+def scale_for_level(level: int) -> float:
+    """Pixel scale of pyramid ``level`` relative to level 0."""
+    return float(2**level)
+
+
+def pad_to_multiple(image: torch.Tensor, multiple: int = 128) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """Zero-pad the trailing (H, W) axes up to a multiple of ``multiple``;
+    returns (padded, original (H, W))."""
+    h, w = image.shape[-2], image.shape[-1]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph or pw:
+        image = F.pad(image, (0, pw, 0, ph))
+    return image, (h, w)

@@ -8,7 +8,9 @@ single buffers with the reference's exact layouts, so host code written
 against the JAX package reads the port's output unchanged.
 
 ``track_superwindow`` runs its windows in a Python loop (the reference's
-``lax.scan``); every stage inside a window is batched over the window.
+``lax.scan``, ``track_superwindow_chunked``); every stage inside a window
+is batched over the window. With a ``window_sharding`` each window's frames
+are split over a mesh (``parallel.mesh.track_superwindow_meshed``).
 
 ``track_frame_flow`` is the flow-first step (pose from pyramidal LK tracks
 of the previous keypoints, ``ops.lk``), and ``match_and_estimate`` the
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from mvslam_tpu_torch.core import prng
+from mvslam_tpu_torch.core.sharding import NamedSharding, blocks, concat
 from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig, FeatureSet
 from mvslam_tpu_torch.frontend.pose_estimator import (
     DevicePoseResult,
@@ -270,6 +273,22 @@ def feature_set_from_arrays(xy, descriptors, valid, *, device) -> FeatureSet:
     )
 
 
+def _to(tree, device):
+    """Every tensor leaf of a (nested) NamedTuple on ``device``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(x, device) for x in tree))
+    return tree.to(device)
+
+
+def _concat(trees, device):
+    """Concatenate per-slot (nested) NamedTuples leaf by leaf along axis 0
+    on ``device``, in slot order."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        return type(first)(*(_concat([t[k] for t in trees], device) for k in range(len(first))))
+    return concat(trees, device)
+
+
 def track_window(
     key: torch.Tensor,
     prev_features: FeatureSet,
@@ -278,6 +297,7 @@ def track_window(
     feature_config: FeaturePipelineConfig,
     pose_config: RobustPoseEstimatorConfig,
     start_index: int = 0,
+    window_sharding: Optional[NamedSharding] = None,
 ) -> Tuple[FeatureSet, TrackResult]:
     """Track a window (B, H, W) of consecutive frames: pair i matches frame
     i-1 (``prev_features`` for i = 0) to frame i.
@@ -286,12 +306,38 @@ def track_window(
     so windowed and frame-by-frame runs draw the same hypotheses. Returns
     (features of every frame, leading axis B — index -1 seeds the next
     window, and the TrackResult with leading axis B).
+
+    ``window_sharding`` splits the frames into its mesh's blocks: slot s
+    detects, matches and estimates its block on its device, its first pair
+    taking slot s−1's last FeatureSet (slot 0's: ``prev_features``) — the
+    reference's boundary collective-permute. Results come back on slot 0's
+    device in frame order.
     """
+    if window_sharding is not None:
+        return _track_window_sharded(
+            key, prev_features, frames, K, feature_config, pose_config, int(start_index), window_sharding
+        )
     feats = _detect_describe(frames, feature_config)
     src = FeatureSet(*(torch.cat([p[None], f[:-1]], dim=0) for p, f in zip(prev_features, feats)))
     ids = int(start_index) + torch.arange(frames.shape[0], device=frames.device)
     keys = prng.fold_in(key.to(frames.device), ids)
     return feats, _track_pairs(keys, src, feats, K, feature_config, pose_config)
+
+
+def _track_window_sharded(key, prev_features, frames, K, feature_config, pose_config, start_index, sharding):
+    mesh = sharding.mesh
+    carry = prev_features
+    feats_parts, track_parts = [], []
+    for (lo, hi), dev in zip(blocks(frames.shape[0], mesh.size, "window"), mesh.devices):
+        feats, track = track_window(
+            key.to(dev), _to(carry, dev), frames[lo:hi].to(dev), K.to(dev), feature_config, pose_config,
+            start_index=start_index + lo,
+        )
+        carry = _index(feats, -1)
+        feats_parts.append(feats)
+        track_parts.append(track)
+    home = mesh.devices[0]
+    return _concat(feats_parts, home), _concat(track_parts, home)
 
 
 def track_superwindow(
@@ -311,12 +357,34 @@ def track_superwindow(
     """
     if frames.shape[0] % window != 0:
         raise ValueError("frames length must be a multiple of window")
+    num_windows = frames.shape[0] // window
+    chunks = frames.reshape(num_windows, window, *frames.shape[1:])
+    starts = [int(start_index) + window * w for w in range(num_windows)]
+    return track_superwindow_chunked(key, prev_features, chunks, K, feature_config, pose_config, starts)
+
+
+def track_superwindow_chunked(
+    key: torch.Tensor,
+    prev_features: FeatureSet,
+    chunks: torch.Tensor,
+    K: torch.Tensor,
+    feature_config: FeaturePipelineConfig,
+    pose_config: RobustPoseEstimatorConfig,
+    starts,
+    window_sharding: Optional[NamedSharding] = None,
+) -> Tuple[FeatureSet, TrackResult]:
+    """The window loop of :func:`track_superwindow` over pre-chunked windows
+    (S, window, H, W), ``starts`` the global frame id of each window's first
+    frame (ints or an (S,) tensor). The carry is the previous window's last
+    FeatureSet; ``window_sharding`` splits each window over a mesh (see
+    :func:`track_window`), which leaves every per-pair key, and so every
+    hypothesis set, as it is unsharded.
+    """
     tracks = []
     prev = prev_features
-    for w in range(frames.shape[0] // window):
+    for chunk, start in zip(chunks, [int(s) for s in starts]):
         feats, track = track_window(
-            key, prev, frames[w * window : (w + 1) * window], K, feature_config, pose_config,
-            start_index=int(start_index) + w * window,
+            key, prev, chunk, K, feature_config, pose_config, start_index=start, window_sharding=window_sharding
         )
         prev = _index(feats, -1)
         tracks.append(track)

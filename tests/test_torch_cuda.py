@@ -576,3 +576,116 @@ def test_runner_native_ingestion_on_the_card_equals_stream(cuda, tmp_path):
     assert strip(diags["native"]) == strip(diags["stream"])
     report = json.loads((runs["native"].run_dir / "reports" / "ingestion_report.json").read_text())
     assert report["backend"] == "native" and report["decoded"] == 10 and report["failed"] == 0
+
+
+def _two_view_samples(k, n, seed=0, outliers=False):
+    """k samples of n normalised correspondences of one rigid two-view scene."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-2, 2, (k, n)), rng.uniform(-1, 1, (k, n)), rng.uniform(4, 10, (k, n))], -1)
+    c, s = np.cos(0.03), np.sin(0.03)
+    R = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    cam2 = pts @ R.T + np.array([0.5, 0.1, 0.05])
+    p1, p2 = pts[..., :2] / pts[..., 2:], cam2[..., :2] / cam2[..., 2:]
+    if outliers:
+        p2[:, : n // 4] += 0.1
+    return p1.astype(np.float32), p2.astype(np.float32)
+
+
+def _pinned_forms():
+    from mvslam_tpu_torch.geometry import epipolar as ep
+    from mvslam_tpu_torch.geometry import linalg as la
+    from mvslam_tpu_torch.geometry import projection as proj
+
+    p1, p2 = _two_view_samples(512, 8)
+    q1, q2 = _two_view_samples(6, 1024, seed=1, outliers=True)
+    w = (np.random.default_rng(2).uniform(size=q1.shape[:2]) > 0.3).astype(np.float32)
+    x1 = np.concatenate([q1, np.ones_like(q1[..., :1])], -1)
+    E = ep.eight_point_essential(torch.from_numpy(p1), torch.from_numpy(p2)).numpy()
+    gram = ep.essential_rows(torch.from_numpy(p1), torch.from_numpy(p2))
+    gram = (gram.transpose(-1, -2) @ gram).numpy()
+    return {
+        "gram_tree": (lambda a: ep._gram_tree(a), (ep.essential_rows(*map(torch.from_numpy, (q1, q2, w))).numpy(),)),
+        "matvec3": (lambda m, x: ep._matvec3(m, x, True), (E[:6], x1)),
+        "smallest_eigvec": (lambda g: la.smallest_eigvec_psd(g, pinned=True), (gram,)),
+        "eight_point_hypotheses": (lambda a, b: ep.eight_point_essential(a, b, pinned=True), (p1, p2)),
+        "eight_point_refit": (lambda a, b, c: ep.eight_point_essential(a, b, c, pinned=True), (q1, q2, w)),
+        "dlt_hypotheses": (lambda a, b: ep.dlt_homography(a, b, pinned=True), (p1[:, :4], p2[:, :4])),
+        "dlt_refit": (lambda a, b, c: ep.dlt_homography(a, b, c, pinned=True), (q1, q2, w)),
+        "sampson_error": (lambda e, a, b: ep.sampson_error(e, a, b, True), (E[:6], q1, q2)),
+        "transfer_error": (lambda h, a, b: ep.symmetric_transfer_error(h, a, b, True),
+                           (np.broadcast_to(np.eye(3, dtype=np.float32), (6, 3, 3)).copy(), q1, q2)),
+        "hartley_weighted": (lambda a, c: proj.hartley_normalization(a, c, pinned=True)[1], (q1, w)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_pinned_forms()))
+def test_pinned_forms_on_the_card_equal_their_slices(cuda, name):
+    """Each order-pinned form gives a row the same bits in the whole batch
+    as in a slice of it, on the card (where ``sum`` and ``matmul`` pick
+    their accumulation order by shape and alignment)."""
+    fn, args = _pinned_forms()[name]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    whole = fn(*args)
+    n = args[0].shape[0]
+    cuts = sorted({0, 1, n // 3, n - 1, n})
+    pieces = torch.cat([fn(*[a[lo:hi] for a in args]) for lo, hi in zip(cuts[:-1], cuts[1:])])
+    assert torch.equal(pieces.view(torch.int32), whole.view(torch.int32))
+
+
+def test_sharded_ransac_on_the_card_bit_equal_across_logical_sizes(cuda):
+    """Hypothesis-sharded RANSAC over logical meshes of 1, 2, 4 and 8 slots
+    on ``cuda:0``: model and inliers bit-equal to the unsharded call with
+    ``mesh_invariant=True``, essential and homography."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.core.sharding import Mesh, NamedSharding
+    from mvslam_tpu_torch.ops.ransac import RansacConfig, ransac_essential, ransac_homography
+    from mvslam_tpu_torch.parallel import sharded_ransac_essential
+
+    p1, p2 = _two_view_samples(1, 2048, seed=4, outliers=True)
+    n1, n2 = torch.from_numpy(p1[0]).to(cuda), torch.from_numpy(p2[0]).to(cuda)
+    mask = torch.ones(2048, dtype=torch.bool, device=cuda)
+    key = prng.key(0, cuda)
+    cfg = RansacConfig(num_hypotheses=512, threshold=2e-3, mesh_invariant=True)
+    single = ransac_essential(key, n1, n2, mask, cfg)
+    single_h = ransac_homography(key, n1, n2, mask, cfg)
+    assert bool(single.success) and int(single.num_inliers) > 1000
+    for size in (1, 2, 4, 8):
+        mesh = Mesh([cuda] * size, ("data",))
+        res = sharded_ransac_essential(mesh, key, n1, n2, mask, cfg)
+        assert torch.equal(res.model, single.model) and torch.equal(res.inliers, single.inliers), size
+        res_h = ransac_homography(key, n1, n2, mask, cfg, hypothesis_sharding=NamedSharding(mesh, "data"))
+        assert torch.equal(res_h.model, single_h.model) and torch.equal(res_h.inliers, single_h.inliers), size
+
+
+def test_meshed_superwindow_on_the_card_equals_unsharded(cuda):
+    """``track_superwindow_meshed`` over 1 + 16 bench frames at (370, 1226)
+    on logical meshes of 2 and 4 slots: features, matches, counts and
+    ``use_essential`` bit-equal to the unsharded pinned run, poses within
+    1e-3; both kernels launched at 8 and 4 frames."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.core.sharding import Mesh
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.parallel import track_superwindow_meshed
+    from mvslam_tpu_torch.slam import tracking
+
+    frames = torch.from_numpy(np.stack([f.astype(np.uint8) for f in make_frames(17)])).to(cuda)
+    fc = FeaturePipelineConfig(num_features=2048, max_matches=512)
+    pc = RobustPoseEstimatorConfig(num_hypotheses=512, mesh_invariant=True)
+    K = torch.tensor([[718.856, 0.0, 607.19], [0.0, 718.856, 185.22], [0.0, 0.0, 1.0]], device=cuda)
+    key = prng.key(0, cuda)
+    prev = tracking.bootstrap_frame(frames[0], fc)
+    last_ref, ref = tracking.track_superwindow(key, prev, frames[1:], K, fc, pc, window=16, start_index=1)
+    for size in (2, 4):
+        k1 = cuda_fast.fast_detect.launches
+        last, got = track_superwindow_meshed(Mesh([cuda] * size, ("data",)), key, prev, frames[1:], K, fc, pc,
+                                             window=16, start_index=1)
+        assert cuda_fast.fast_detect.launches - k1 == size
+        for a, b in zip(last, last_ref):
+            assert torch.equal(a, b)
+        assert torch.equal(got.features_packed.view(torch.int32), ref.features_packed.view(torch.int32))
+        assert torch.equal(got.match_mask, ref.match_mask)
+        assert torch.equal(got.scalars_packed[..., 12:13], ref.scalars_packed[..., 12:13])
+        assert torch.equal(got.scalars_packed[..., 23:25], ref.scalars_packed[..., 23:25])
+        assert float((got.scalars_packed[..., :12] - ref.scalars_packed[..., :12]).abs().max()) < 1e-3
