@@ -131,7 +131,10 @@ and prints no ok line):
              compile and link, ``-march=native``'s target); ``decode_gray``
              bit-equal to the numpy decoder on the offline phase's 29 PNG
              files, the same frames re-encoded with each filter type 1 to 4,
-             an RGB frame and a PGM; ms per frame of the numpy decoder and
+             an RGB frame and a PGM; both decoders on the committed PNG
+             files with gamma chunks (``tests/data/png_gamma``) against the
+             SHA-256 of libpng's output for each (this host has no libpng),
+             ms per file; ms per frame of the numpy decoder and
              ``decode_gray`` per filter type and of ``NativeFrameLoader``
              with 1, 2 and 4 workers (in order, equal frames); the host
              matcher bit-equal to the card's ``match_descriptors`` on two
@@ -166,7 +169,23 @@ and prints no ok line):
              wall), ms per ``add``, the matvec's own time (CUDA events over
              200 launches) beside its bound from its bytes, and a host numpy
              matvec's time.
-20. mesh    — ``mvslam_tpu_torch.parallel`` on logical meshes over
+20. accuracy — the four scenes of ``benchmarks/benchmark_accuracy_scenes.py``
+             (copied here: that script imports the JAX package) with its
+             settings: straight, yawing arc and noisy arc through
+             ``SLAMSystem`` (seed 3, 512 features, 256 matches, 256
+             hypotheses, fixed 2 px threshold, ``min_translation=0.05``
+             where the script sets it), and the 29-frame out-and-back
+             revisit written as a KITTI layout through ``run_visual_slam``
+             with loops off and on; the ten metrics under the script's
+             names, each beside its baseline and limit, judged by the
+             port's ``compare_metrics`` against
+             ``baselines/accuracy_scenes.json`` under
+             ``configs/evaluation/accuracy_gate.json`` (both read as they
+             are; ``regressed`` fails the script); then K1 and K2 held
+             against their plain versions at every shape the phase
+             launched them at that no earlier phase compared (240x320),
+             with the same times and bounds as phases 3 and 4.
+21. mesh    — ``mvslam_tpu_torch.parallel`` on logical meshes over
              ``cuda:0`` (one card: no multi-card scaling figure), each
              against its unsharded run: ``track_superwindow_meshed`` on the
              bench's 1 + 96 frames (window 16, the main path's
@@ -189,8 +208,9 @@ and prints no ok line):
 
 Kernel launches are counted per path: the counts are set to 0 just
 before each of main, slam, flow, slam_ba, offline, reloc, async_stream,
-async_ingest (its async run), native_ingest (its native run), animate and
-mesh (its meshed superwindow and batched pairs) and read just after (the
+async_ingest (its async run), native_ingest (its native run), animate,
+accuracy and mesh (its meshed superwindow and batched pairs) and read just
+after (the
 pose-graph solver, the index, and the mesh's RANSAC, BA and pose graph
 run no hand kernel). The
 wrappers also count their launches by shape, and the script fails if a path
@@ -1539,10 +1559,50 @@ def toolchain() -> dict:
     }
 
 
+GAMMA_FIXTURES = "tests/data/png_gamma"
+
+
+def gamma_fixtures() -> dict:
+    """Both port decoders on the committed PNG files with gamma chunks,
+    against the SHA-256 of libpng's grey output for each (``digests.json``
+    beside them, written where libpng is installed; this host has none):
+    per file, ms per decode of each decoder that reads it (best of 5)."""
+    import hashlib
+
+    import numpy as np
+
+    from mvslam_tpu_torch import native
+    from mvslam_tpu_torch.runtime import frame_stream
+
+    folder = REPO / GAMMA_FIXTURES
+    digests = json.loads((folder / "digests.json").read_text())
+    if not digests:
+        raise AssertionError(f"no gamma fixtures in {GAMMA_FIXTURES}")
+    out = {}
+    for name, want in sorted(digests.items()):
+        path = folder / name
+        decoders = {"decode_gray": lambda: native.decode_gray(path)}
+        if want["numpy"]:
+            decoders["numpy"] = lambda: frame_stream.decode_png(path.read_bytes())
+        out[name] = {}
+        for decoder, fn in decoders.items():
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                img = fn()
+                times.append(1e3 * (time.perf_counter() - t0))
+            digest = None if img is None else hashlib.sha256(np.ascontiguousarray(img, np.uint8).tobytes()).hexdigest()
+            if digest != want["sha256"] or list(img.shape) != want["shape"]:
+                raise AssertionError(f"native: {decoder} on {name} differs from libpng's digest")
+            out[name][decoder] = min(times)
+    return out
+
+
 def phase_native(dev):
     """The native host library: its build, its decoder against the numpy
     decoder on every file of a corpus (the offline scene's 29 PNGs, the same
-    frames with filter types 1 to 4, an RGB frame, a PGM), its frame loader
+    frames with filter types 1 to 4, an RGB frame, a PGM), both decoders
+    against libpng's digests of the committed gamma fixtures, its frame loader
     with 1, 2 and 4 workers, and its matcher against the card's on two
     bench frames' descriptors."""
     import numpy as np
@@ -1595,6 +1655,7 @@ def phase_native(dev):
         got = native.decode_gray(q)
         if got is None or not np.array_equal(got, ref):
             raise AssertionError(f"native: decode_gray differs from the numpy decoder on {q.name}")
+    gamma_ms = gamma_fixtures()
     loader_ms = {}
     for workers in NATIVE_LOADER_WORKERS:
         t0 = time.perf_counter()
@@ -1653,7 +1714,8 @@ def phase_native(dev):
         "phase": "native", "library": str(path.relative_to(REPO)), "key": path.stem.split("_")[-1],
         "march": march, "build_seconds": NATIVE_BUILD["seconds"], "toolchain": toolchain(),
         "corpus": {"pngs_per_filter": len(src), "filters": sorted(files), "rgb": 1, "pgm": 1, "shape": [h, w]},
-        "decode_bit_equal_to_numpy": True,
+        "decode_bit_equal_to_numpy": True, "gamma_fixtures_equal_libpng_digests": True,
+        "gamma_fixture_decode_ms_host": gamma_ms,
         "decode_ms_per_frame_host": {
             "numpy": {f"filter{ft}": ms for ft, ms in numpy_ms.items()},
             "decode_gray": {f"filter{ft}": ms for ft, ms in native_ms.items()},
@@ -1973,6 +2035,225 @@ def phase_bow_index(dev):
         "grown_from": 1024, "grown_rows": INDEX_GROWN_ROWS, "grown_capacity": grown.capacity, "add_ms": add_ms,
         "grown_equals_bulk": True, "phase_seconds": time.perf_counter() - phase_t0,
     })
+
+
+# The accuracy phase: the four scenes of benchmarks/benchmark_accuracy_scenes.py
+# with that script's settings, copied here (the script and its helpers
+# import the JAX package), judged with the port's compare_metrics against
+# the committed baselines under the committed gate's thresholds.
+ACCURACY_BASELINES = "baselines/accuracy_scenes.json"
+ACCURACY_GATE = "configs/evaluation/accuracy_gate.json"
+ACCURACY_KEY = "accuracy_scenes"
+
+
+def yaw_matrix(yaw: float):
+    import numpy as np
+
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+
+
+def accuracy_scene(name: str):
+    """One tracking scene of the accuracy benchmark, rendered by the port:
+    (frames, gt positions, intrinsics, keyframe min_translation or None)."""
+    import numpy as np
+
+    from mvslam_tpu_torch.data.synthetic import render_scene
+
+    if name == "straight":  # render_scene's defaults: 10 frames, 240x320
+        frames, gt, intr, _ = render_scene()
+        return frames, gt, intr, 0.05
+    if name == "yaw_arc":
+        frames, gt, intr, _ = render_scene(
+            traj_fn=lambda i: (yaw_matrix(0.03 * i), np.array([0.25 * i, 0.0, 0.05 * i])))
+        return frames, gt, intr, None
+    if name == "noisy_arc":
+        frames, gt, intr, _ = render_scene(
+            num_frames=14, traj_fn=lambda i: (yaw_matrix(0.02 * i), np.array([0.25 * i, 0.0, 0.05 * i])),
+            noise=5.0, seed=11)
+        return frames, gt, intr, 0.05
+    raise ValueError(name)
+
+
+def accuracy_tracking(name: str, root: Path, dev) -> dict:
+    """The benchmark's ``_tracking_ate``: SLAMSystem (seed 3, 512 features,
+    256 matches, 256 hypotheses, fixed 2 px threshold, all else default)
+    over one scene; its ATE/RPE against ground truth, poses and models."""
+    import numpy as np
+
+    from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
+    from mvslam_tpu_torch.eval.trajectory import compute_additional_metrics
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    frames, gt, (fx, fy, cx, cy), min_translation = accuracy_scene(name)
+    kwargs = {} if min_translation is None else {"keyframe": KeyframeConfig(min_translation=min_translation)}
+    system = SLAMSystem(
+        SLAMSystemConfig(
+            run_id=f"accuracy_{name}", output_root=root, seed=3, fx=fx, fy=fy, cx=cx, cy=cy,
+            feature=FeaturePipelineConfig(num_features=512, max_matches=256),
+            pose=RobustPoseEstimatorConfig(num_hypotheses=256, adaptive_threshold=False, essential_threshold_px=2.0),
+            **kwargs,
+        ),
+        device=dev,
+    )
+    t0 = time.perf_counter()
+    diags = system.run_sequence(frames)
+    seconds = time.perf_counter() - t0
+    est = np.stack(system.trajectory.poses)[:, :3, 3]
+    metrics = compute_additional_metrics(est, gt)
+    models = [d.model_type for d in diags[1:] if d.pose_success]
+    return {"frames": len(frames), "shape": list(frames[0].shape), "posed": len(models),
+            "models": {m: models.count(m) for m in sorted(set(models))}, "seconds": seconds,
+            "ATE_RMSE": float(metrics["ATE_RMSE"]), "RPE_RMSE": float(metrics["RPE_RMSE"]),
+            "input_dtype": str(np.asarray(frames[0]).dtype)}
+
+
+def accuracy_loop_scene(root: Path, dev) -> dict:
+    """The benchmark's ``_offline_loop_scene``: the out-and-back revisit
+    (1 + 28 frames at 240x320, noise 6, seed 2) written as a KITTI layout,
+    through ``run_visual_slam`` with loops off and then on (seed 3, gap 12,
+    similarity 0.7, 25 inliers, ground truth)."""
+    import numpy as np
+
+    from mvslam_tpu_torch.data.synthetic import render_scene, write_kitti_sequence
+    from mvslam_tpu_torch.slam.offline import SLAMRunConfig, run_visual_slam
+
+    half = 14
+
+    def out_and_back(i):
+        x = 0.25 * i if i <= half else 0.25 * (2 * half - i)
+        return np.eye(3), np.array([x, 0.0, 0.0])
+
+    frames, gt, intr, _ = render_scene(num_frames=2 * half + 1, traj_fn=out_and_back, noise=6.0, seed=2)
+    data_root, gt_path = write_kitti_sequence(root / "kitti_oab", frames, gt, intr)
+    common = dict(input_path=data_root, input_kind="kitti", sequence="00", output_root=root / "runs_oab", seed=3,
+                  ground_truth_path=gt_path, loop_min_frame_gap=12, loop_similarity_threshold=0.7,
+                  loop_min_inliers=25)
+    out = {"frames": len(frames), "shape": list(frames[0].shape)}
+    for tag, loops in (("off", False), ("on", True)):
+        t0 = time.perf_counter()
+        run = run_visual_slam(SLAMRunConfig(run_id=f"loop_{tag}", enable_loop_closure=loops, **common), device=dev)
+        out[tag] = {"ATE_RMSE": float(run["metrics"]["ATE_RMSE"]), "loops_accepted": len(run["loops_accepted"]),
+                    "seconds": time.perf_counter() - t0}
+    return out
+
+
+def accuracy_metrics(root: Path, dev) -> tuple:
+    """The ten metrics of the accuracy benchmark, under its names, and the
+    runs behind them."""
+    scenes = {name: accuracy_tracking(name, root, dev) for name in ("straight", "yaw_arc", "noisy_arc")}
+    loop = accuracy_loop_scene(root, dev)
+    metrics = {}
+    for name, run in scenes.items():
+        metrics[f"accuracy_{name}_ate_rmse"] = run["ATE_RMSE"]
+        metrics[f"accuracy_{name}_rpe_rmse"] = run["RPE_RMSE"]
+    metrics["accuracy_oab_loop_on_ate_rmse"] = loop["on"]["ATE_RMSE"]
+    metrics["accuracy_oab_loop_off_ate_rmse"] = loop["off"]["ATE_RMSE"]
+    metrics["accuracy_oab_loop_ate_ratio"] = loop["on"]["ATE_RMSE"] / max(loop["off"]["ATE_RMSE"], 1e-12)
+    ates = [run["ATE_RMSE"] for run in scenes.values()] + [loop["on"]["ATE_RMSE"]]
+    metrics["accuracy_mean_ate_rmse"] = sum(ates) / len(ates)
+    return metrics, {**scenes, "oab_loop": loop}
+
+
+def accuracy_gate(metrics: dict) -> tuple:
+    """``compare_metrics`` of the port against the committed baseline store
+    under the committed gate, both read as they are: (report, per-metric
+    rows with baseline and limit)."""
+    from mvslam_tpu_torch.eval.baselines import BaselineStore, compare_metrics
+
+    gate = json.loads((REPO / ACCURACY_GATE).read_text())
+    thresholds = next(b for b in gate["benchmarks"] if b["name"] == ACCURACY_KEY)["metric_thresholds"]
+    baseline = BaselineStore(REPO / ACCURACY_BASELINES).load_baseline(ACCURACY_KEY)
+    if baseline is None:
+        raise AssertionError(f"no {ACCURACY_KEY!r} baseline in {ACCURACY_BASELINES}")
+    report = compare_metrics(metrics, baseline, thresholds)
+    rows = {}
+    for name, value in metrics.items():
+        row = {"value": value, "baseline": baseline.get(name)}
+        if name in thresholds:
+            t = thresholds[name]
+            row["limit"] = baseline[name] * (1.0 + t["tolerance"]) if t.get("direction") == "lower" else None
+            row["status"] = next(c.status for c in report.comparisons if c.metric == name)
+        rows[name] = row
+    return report, rows
+
+
+def stacked(frames, b: int, dev):
+    """``b`` of ``frames``, repeated as needed, on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.stack([frames[i % len(frames)] for i in range(b)])).to(dev)
+
+
+def new_shape_routes(path: str, f32_frames, u8_frames, dev) -> tuple:
+    """Hold K1 and K2 against their plain versions at every shape ``path``
+    launched them at and no earlier phase compared, on that path's frames
+    (all of the path's size): K1 on its float32 or uint8 frames, K2 on
+    their blur with points that include clamped border tiles and exact .5
+    coordinates."""
+    import torch
+
+    from mvslam_tpu_torch.ops.image import gaussian_blur
+
+    k1_routes, k2_routes = [], []
+    for key in sorted(LAUNCH_SHAPES[path]["fast_detect"]):
+        if key not in COMPARED["fast_detect"]:
+            dtype, b = key[:2]
+            x = stacked(f32_frames if dtype == "torch.float32" else u8_frames, b, dev)
+            k1_routes.append({**k1_route(x), "path": path})
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for key in sorted(LAUNCH_SHAPES[path]["extract_patches"]):
+        if key not in COMPARED["extract_patches"]:
+            out_dtype, b, h, w, n = key
+            image = gaussian_blur(stacked(f32_frames, b, dev).to(torch.float32), sigma=2.0, radius=4)
+            xy = torch.rand((b, n, 2), generator=gen) * torch.tensor([w + 40.0, h + 40.0]) - 20.0
+            xy[:, : n // 8] = torch.round(xy[:, : n // 8]) + 0.5
+            xy[:, n // 8 : n // 8 + 4] = torch.tensor([[-7.0, -3.0], [w + 5.0, h + 9.0], [w - 1.0, 0.0], [0.0, h - 1.0]])
+            dt = getattr(torch, out_dtype.replace("torch.", ""))
+            tag = "bf16 tiles, BRIEF" if dt == torch.bfloat16 else "f32 tiles"
+            k2_routes.append({**k2_route(image, xy.to(dev), dt, f"{tag} ({b}, {h}, {w}), {n} points"), "path": path})
+    return k1_routes, k2_routes
+
+
+def phase_accuracy(dev, k1: dict, k2: dict):
+    """The accuracy benchmark's four scenes through the port on the card,
+    judged against the committed baselines and gate; then K1 and K2 held
+    against their plain versions at the phase's new shapes (their rows join
+    the kernels line's routes)."""
+    import numpy as np
+    import torch
+
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.runtime.frame_stream import _default_read_fn
+
+    phase_t0 = time.perf_counter()
+    root = REPO / "runs" / "chip_smoke" / "accuracy"
+    reset_launches()
+    metrics, runs = accuracy_metrics(root, dev)
+    launches = read_launches("accuracy")
+    run_s = time.perf_counter() - phase_t0
+    report, rows = accuracy_gate(metrics)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite accuracy metric: {metrics}")
+    f32_frames = render_scene()[0]  # the straight scene: float32 renders
+    png_dir = root / "kitti_oab" / "sequences" / "00" / "image_0"
+    u8_frames = [_default_read_fn(p) for p in sorted(png_dir.glob("*.png"))]
+    k1_new, k2_new = new_shape_routes("accuracy", f32_frames, u8_frames, dev)
+    k1["routes"] += k1_new
+    k2["routes"] += k2_new
+    emit({"phase": "accuracy", "status": report.status, "metrics": rows, "runs": runs,
+          "launches": launches, "run_seconds": run_s, "seconds": time.perf_counter() - phase_t0,
+          "gate": ACCURACY_GATE, "baselines": ACCURACY_BASELINES,
+          "k1_new_shapes": k1_new, "k2_new_shapes": k2_new})
+    if report.status == "regressed":
+        failed = {c.metric: c.reasons for c in report.comparisons if c.status == "regressed"}
+        raise AssertionError(f"the accuracy gate regressed: {failed}")
+    if report.status != "pass":
+        raise AssertionError(f"the accuracy gate is incomplete: {report.to_dict()}")
+    return launches
 
 
 def ba_scene(W=5, P=1024, seed=0):
@@ -2370,6 +2651,7 @@ def main() -> int:
     phase_eval(ingest_runs)
     by_path["animate"] = phase_animate(torch.device("cuda", 0), offline_no_loops)
     phase_bow_index(torch.device("cuda", 0))
+    by_path["accuracy"] = phase_accuracy(torch.device("cuda", 0), k1, k2)
     by_path["mesh"] = phase_mesh(host_frames, torch.device("cuda", 0))
     if any(name.split(".")[0] in ("jax", "mvslam_tpu") for name in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")

@@ -30,7 +30,7 @@ _NATIVE_DIR = Path(__file__).resolve().parent
 SOURCE = _NATIVE_DIR / "src" / "mvslam_native.cc"
 _BUILD_DIR = _NATIVE_DIR.parent / "_build"
 
-_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden", "-Wall", "-pthread"]
+_CXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-fvisibility=hidden", "-Wall", "-pthread"]
 # Host-tuned ISA for the Hamming matcher's popcount loop (AVX-512 VPOPCNTQ
 # where the CPU has it). Tried first; if the compiler rejects it, build()
 # retries with the generic flag set.

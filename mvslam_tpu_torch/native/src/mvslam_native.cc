@@ -13,7 +13,9 @@
 //     strip_alpha: colour to grey by weights 9797/19234/3737 over 2^15,
 //     truncated for 8-bit samples and rounded for 16-bit ones before their
 //     low byte is dropped; grey colour (R = G = B) passes unchanged.
-//     Gamma chunks (gAMA, sRGB, iCCP) are ignored.
+//     A colour file whose gAMA or sRGB chunk makes libpng's gamma
+//     significant takes libpng's gamma path instead (GammaPath below).
+//     iCCP and cHRM chunks are not read.
 //   * mvn_loader_*     — a decode pool (std::thread) over a preallocated
 //     slot ring that delivers frames strictly in sequence order with
 //     bounded-capacity backpressure: workers may finish out of order, the
@@ -31,6 +33,7 @@
 #include <atomic>
 #include <cctype>
 #include <chrono>
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -160,6 +163,205 @@ struct PngHeader {
   int channels = 0;
 };
 
+// ---------------------------------------------------------------------------
+// libpng 1.6's gamma path for rgb_to_gray
+// ---------------------------------------------------------------------------
+//
+// With no screen gamma set, libpng takes the screen gamma to be the
+// reciprocal of the file's; it builds its gamma tables, and rgb_to_gray
+// then converts through them, when either value lies more than
+// PNG_GAMMA_THRESHOLD_FIXED (5000) from 1.0 (units of 1e-5). Colour goes
+// to linear (to_1), is weighted and rounded (+16384), and comes back
+// (from_1); grey colour (R = G = B) goes through the file-to-screen table.
+// Every table entry is libpng's own double expression (its floating
+// arithmetic build); the code is built with -ffp-contract=off so that no
+// multiply-add is fused where libpng's is not.
+
+constexpr int32_t kFixedOne = 100000;
+constexpr int32_t kGammaThreshold = 5000;
+constexpr int32_t kGammaSrgb = 45455;  // PNG_GAMMA_sRGB_INVERSE
+constexpr int kMaxGamma8 = 11;         // PNG_MAX_GAMMA_8
+
+inline bool GammaSignificant(int64_t g) {  // png_gamma_significant
+  return g < kFixedOne - kGammaThreshold || g > kFixedOne + kGammaThreshold;
+}
+
+inline int64_t FixedRound(double r) {  // floor(r + .5), 0 past 32 bits as libpng
+  r = std::floor(r + .5);
+  return (r <= 2147483647. && r >= -2147483648.) ? static_cast<int64_t>(r) : 0;
+}
+
+inline int64_t Reciprocal(int64_t a) { return FixedRound(1E10 / a); }  // png_reciprocal
+
+inline int64_t Reciprocal2(int64_t a, int64_t b) {  // png_reciprocal2
+  double r = 1E15 / a;
+  r /= b;
+  return FixedRound(r);
+}
+
+inline int64_t Product2(int64_t a, int64_t b) {  // png_product2
+  double r = a * 1E-5;
+  r *= b;
+  return FixedRound(r);
+}
+
+// png_build_8bit_table with png_gamma_8bit_correct.
+void BuildTable8(int64_t gamma, uint8_t* table) {
+  for (int i = 0; i < 256; ++i) {
+    if (GammaSignificant(gamma) && i > 0 && i < 255) {
+      table[i] = static_cast<uint8_t>(std::floor(255 * std::pow(i / 255., gamma * .00001) + .5));
+    } else {
+      table[i] = static_cast<uint8_t>(i);
+    }
+  }
+}
+
+// png_build_16bit_table: (256 >> shift) sub-tables of 256, entry
+// [low][high] at low * 256 + high.
+void BuildTable16(int shift, int64_t gamma, std::vector<uint16_t>* table) {
+  const unsigned num = 1u << (8 - shift);
+  const double fmax = 1.0 / ((1 << (16 - shift)) - 1);
+  const unsigned max = (1u << (16 - shift)) - 1u;
+  const unsigned max_by_2 = 1u << (15 - shift);
+  table->assign(num * 256, 0);
+  for (unsigned i = 0; i < num; ++i) {
+    for (unsigned j = 0; j < 256; ++j) {
+      uint32_t ig = (j << (8 - shift)) + i;
+      if (GammaSignificant(gamma)) {
+        (*table)[i * 256 + j] =
+            static_cast<uint16_t>(std::floor(65535. * std::pow(ig * fmax, gamma * .00001) + .5));
+      } else {
+        if (shift != 0) ig = (ig * 65535u + max_by_2) / max;
+        (*table)[i * 256 + j] = static_cast<uint16_t>(ig);
+      }
+    }
+  }
+}
+
+inline uint32_t GammaCorrect16(uint32_t value, int64_t gamma) {  // png_gamma_16bit_correct
+  if (value == 0 || value >= 65535) return value;
+  return static_cast<uint32_t>(std::floor(65535 * std::pow(value / 65535., gamma * .00001) + .5));
+}
+
+// png_build_16to8_table: the nearest 8-bit output (times 257) per input.
+void BuildTable16To8(int shift, int64_t gamma, std::vector<uint16_t>* table) {
+  const unsigned num = 1u << (8 - shift);
+  const uint32_t max = (1u << (16 - shift)) - 1u;
+  table->assign(num * 256, 0);
+  uint32_t last = 0;
+  auto put = [&](uint32_t v, uint16_t out) {
+    (*table)[(v & (0xffu >> shift)) * 256 + (v >> (8 - shift))] = out;
+  };
+  for (unsigned i = 0; i < 255; ++i) {
+    const uint16_t out = static_cast<uint16_t>(i * 257u);
+    uint32_t bound = GammaCorrect16(out + 128u, gamma);
+    bound = (bound * max + 32768u) / 65535u + 1u;
+    while (last < bound) put(last++, out);
+  }
+  while (last < (num << 8)) put(last++, 65535u);
+}
+
+// What libpng reads from gAMA, sRGB and sBIT before PLTE and IDAT, with its
+// rules: an ancillary chunk with a bad CRC or the wrong length is dropped;
+// a gAMA out of [16, 625000000] or a second stored gAMA, or an sRGB chunk
+// with an undefined intent, marks the colour space invalid, and after that
+// no gAMA or sRGB is stored (the gamma already stored stays); sRGB sets
+// 45455 once; a gAMA after sRGB is stored only where it agrees with 45455
+// within the threshold. The first valid sBIT counts.
+struct ColourChunks {
+  int64_t gamma = 0;  // 0: the file states none
+  bool from_gama = false;
+  bool from_srgb = false;
+  bool invalid = false;
+  int sig_bit = 0;  // largest colour sBIT, 0 without one
+  bool have_sbit = false;
+
+  void Chunk(const uint8_t* type, const uint8_t* body, uint32_t len, const PngHeader& hd) {
+    if (std::memcmp(type, "gAMA", 4) == 0 && len == 4) {
+      const uint32_t raw = ReadBE32(body);
+      const int64_t g = raw > 0x7fffffffu ? -1 : raw;  // png_get_fixed_point
+      if (g < 16 || g > 625000000 || from_gama) {
+        invalid = true;
+      } else if (!invalid) {
+        if (from_srgb) {  // png_colorspace_check_gamma against sRGB
+          double r = static_cast<double>(gamma);
+          r *= kFixedOne;
+          r /= g;
+          r = std::floor(r + .5);
+          if (r > 2147483647. || GammaSignificant(static_cast<int64_t>(r))) return;
+        }
+        gamma = g;
+        from_gama = true;
+      }
+    } else if (std::memcmp(type, "sRGB", 4) == 0 && len == 1) {
+      if (invalid || from_srgb) return;
+      if (body[0] > 3) {
+        invalid = true;
+        return;
+      }
+      gamma = kGammaSrgb;
+      from_srgb = true;
+    } else if (std::memcmp(type, "sBIT", 4) == 0 && !have_sbit) {
+      const uint32_t want = hd.color == 3 ? 3 : static_cast<uint32_t>(hd.channels);
+      const int sample_depth = hd.color == 3 ? 8 : hd.depth;
+      if (len != want) return;
+      for (uint32_t i = 0; i < len; ++i) {
+        if (body[i] == 0 || body[i] > sample_depth) return;
+      }
+      have_sbit = true;
+      sig_bit = (hd.color & 2) ? std::max({body[0], body[1], body[2]}) : body[0];
+    }
+  }
+};
+
+// The tables of libpng's gamma path, for 8-bit samples (palette entries
+// included) or 16-bit ones; `on` is false where libpng takes the plain path.
+struct GammaPath {
+  bool on = false;
+  uint8_t to1[256], from1[256], grey[256];
+  int shift = 0;
+  std::vector<uint16_t> to1_16, from1_16, grey_16;
+
+  void Build(const ColourChunks& cs, const PngHeader& hd) {
+    const bool colour = hd.color == 2 || hd.color == 3 || hd.color == 6;
+    if (!colour || cs.gamma == 0) return;
+    const int64_t file = cs.gamma;
+    const int64_t screen = Reciprocal(file);
+    if (!GammaSignificant(file) && !GammaSignificant(screen)) return;
+    on = true;
+    if (hd.depth <= 8) {
+      BuildTable8(Reciprocal2(file, screen), grey);
+      BuildTable8(Reciprocal(file), to1);
+      BuildTable8(Reciprocal(screen), from1);
+      return;
+    }
+    // png_build_gamma_table's shift: the insignificant bits (sBIT), at
+    // least 16 - PNG_MAX_GAMMA_8 since strip_16 follows, at most 8.
+    shift = (cs.sig_bit > 0 && cs.sig_bit < 16) ? 16 - cs.sig_bit : 0;
+    shift = std::min(std::max(shift, 16 - kMaxGamma8), 8);
+    BuildTable16To8(shift, Product2(file, screen), &grey_16);
+    BuildTable16(shift, Reciprocal(file), &to1_16);
+    BuildTable16(shift, Reciprocal(screen), &from1_16);
+  }
+
+  uint8_t Luma8(uint32_t r, uint32_t g, uint32_t b) const {
+    if (r == g && r == b) return grey[r];
+    return from1[(kRedCoeff * to1[r] + kGreenCoeff * to1[g] + kBlueCoeff * to1[b] + 16384) >> 15];
+  }
+
+  uint16_t Look16(const std::vector<uint16_t>& table, uint32_t v) const {
+    return table[((v & 0xffu) >> shift) * 256 + (v >> 8)];
+  }
+
+  uint8_t Luma16(uint32_t r, uint32_t g, uint32_t b) const {
+    if (r == g && r == b) return static_cast<uint8_t>(Look16(grey_16, r) >> 8);
+    const uint32_t lin = (kRedCoeff * Look16(to1_16, r) + kGreenCoeff * Look16(to1_16, g) +
+                          kBlueCoeff * Look16(to1_16, b) + 16384) >> 15;
+    return static_cast<uint8_t>(Look16(from1_16, lin) >> 8);
+  }
+};
+
+
 bool ValidHeader(const PngHeader& hd) {
   if (hd.width == 0 || hd.height == 0 || hd.width > kPngMaxLength || hd.height > kPngMaxLength) {
     return false;
@@ -217,8 +419,8 @@ bool UnfilterRow(int filter, uint8_t* row, const uint8_t* prev, size_t len, size
 }
 
 // One unfiltered row of `n` pixels to grey, written at dst[0], dst[step], ...
-void RowToGray(const PngHeader& hd, const uint8_t* row, size_t n, const uint8_t* palette,
-               uint8_t* dst, size_t step) {
+void RowToGray(const PngHeader& hd, const GammaPath& gp, const uint8_t* row, size_t n,
+               const uint8_t* palette, uint8_t* dst, size_t step) {
   const int depth = hd.depth;
   switch (hd.color) {
     case 0:  // grey
@@ -245,12 +447,13 @@ void RowToGray(const PngHeader& hd, const uint8_t* row, size_t n, const uint8_t*
       if (depth == 8) {
         for (size_t i = 0; i < n; ++i) {
           const uint8_t* s = row + i * px;
-          dst[i * step] = Luma8(s[0], s[1], s[2]);
+          dst[i * step] = gp.on ? gp.Luma8(s[0], s[1], s[2]) : Luma8(s[0], s[1], s[2]);
         }
       } else {
         for (size_t i = 0; i < n; ++i) {
           const uint8_t* s = row + i * px;
-          dst[i * step] = Luma16((s[0] << 8) | s[1], (s[2] << 8) | s[3], (s[4] << 8) | s[5]);
+          const uint32_t r = (s[0] << 8) | s[1], g = (s[2] << 8) | s[3], b = (s[4] << 8) | s[5];
+          dst[i * step] = gp.on ? gp.Luma16(r, g, b) : Luma16(r, g, b);
         }
       }
       return;
@@ -266,7 +469,7 @@ void RowToGray(const PngHeader& hd, const uint8_t* row, size_t n, const uint8_t*
           idx = (row[bit >> 3] >> (8 - depth - static_cast<int>(bit & 7))) & mask;
         }
         const uint8_t* c = palette + 3 * idx;
-        dst[i * step] = Luma8(c[0], c[1], c[2]);
+        dst[i * step] = gp.on ? gp.Luma8(c[0], c[1], c[2]) : Luma8(c[0], c[1], c[2]);
       }
       return;
     }
@@ -306,6 +509,7 @@ int DecodePngGray(const uint8_t* data, size_t size, uint8_t* out, int32_t cap_h,
                   int32_t cap_w, int32_t* h, int32_t* w, std::vector<uint8_t>* inflated) {
   if (size < 8 || std::memcmp(data, kPngSignature, 8) != 0) return kErrFormat;
   PngHeader hd;
+  ColourChunks colour;
   bool have_header = false, have_palette = false, have_end = false;
   uint8_t palette[256 * 3] = {0};  // indices past the palette read black
   std::vector<std::pair<size_t, uint32_t>> idat;
@@ -345,12 +549,22 @@ int DecodePngGray(const uint8_t* data, size_t size, uint8_t* out, int32_t cap_h,
     } else if (std::memcmp(type, "IEND", 4) == 0) {
       have_end = true;
       break;
+    } else if (std::memcmp(type, "gAMA", 4) == 0 || std::memcmp(type, "sRGB", 4) == 0 ||
+               std::memcmp(type, "sBIT", 4) == 0) {
+      // libpng drops these after PLTE or IDAT, or on a bad CRC.
+      if (!have_palette && idat.empty() &&
+          ReadBE32(body + len) == crc32(crc32(0L, Z_NULL, 0), type, len + 4)) {
+        colour.Chunk(type, body, len, hd);
+      }
     } else if (critical) {
       return kErrDecode;  // an unknown critical chunk cannot be skipped
     }
     pos += 12 + static_cast<size_t>(len);
   }
   if (!have_header || !have_end || idat.empty()) return kErrDecode;
+
+  GammaPath gp;
+  gp.Build(colour, hd);
 
   // The sub-images: the whole image, or Adam7's seven passes.
   const int passes = hd.interlace ? 7 : 1;
@@ -383,7 +597,7 @@ int DecodePngGray(const uint8_t* data, size_t size, uint8_t* out, int32_t cap_h,
       const size_t oy = hd.interlace ? a[1] + y * a[3] : y;
       const size_t ox = hd.interlace ? a[0] : 0;
       const size_t step = hd.interlace ? a[2] : 1;
-      RowToGray(hd, row, pass_w[p], palette, out + oy * hd.width + ox, step);
+      RowToGray(hd, gp, row, pass_w[p], palette, out + oy * hd.width + ox, step);
       prev = row;
       cursor += len + 1;
     }

@@ -13,12 +13,16 @@ reader decodes with its C++ library, then cv2, then Pillow. The port's
 default reader decodes with its own C++ library (``mvslam_tpu_torch.native``)
 and then with numpy: :func:`decode_png` and :func:`decode_pnm` read 8-bit
 grey, RGB and RGBA non-interlaced PNG and binary PGM/PPM with numpy and
-``zlib``, colour to grey by BT.601 in fixed point as libpng, and so the
-native decoder, does. Neither cv2 nor Pillow is needed.
+``zlib``, colour to grey as libpng, and so the native decoder, does (BT.601
+in fixed point, through libpng's gamma tables where a gAMA or sRGB chunk
+calls for them). Neither cv2 nor Pillow is needed for those; other formats
+(JPEG, BMP, TIFF) go to cv2 and then Pillow where they are installed, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import threading
@@ -107,14 +111,90 @@ _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # grey, RGB, RGBA
 _PNG_COLOR_NAMES = {3: "palette", 4: "grey+alpha"}
 
 
-def _luma_bt601(rgb: np.ndarray) -> np.ndarray:
+def _luma_bt601(rgb: np.ndarray, file_gamma: int = 0) -> np.ndarray:
     """(H, W, 3+) uint8 → (H, W) uint8 as libpng's
     ``png_set_rgb_to_gray_fixed(png, 1, 29900, 58700)`` gives it: BT.601
     weights (0.299, 0.587) truncated to 15-bit fixed point (9797, 19234),
     blue the remainder (3737), the sum truncated. Grey colour (R = G = B)
-    stays exact because the weights sum to 2^15."""
-    c = rgb.astype(np.uint32)
-    return ((9797 * c[..., 0] + 19234 * c[..., 1] + 3737 * c[..., 2]) >> 15).astype(np.uint8)
+    stays exact because the weights sum to 2^15. A ``file_gamma`` (units of
+    1e-5, from :func:`_png_file_gamma`) that libpng deems significant takes
+    libpng's gamma path instead (:func:`_gamma_tables`)."""
+    c = rgb[..., :3].astype(np.uint32)
+    tables = _gamma_tables(file_gamma)
+    if tables is None:
+        return ((9797 * c[..., 0] + 19234 * c[..., 1] + 3737 * c[..., 2]) >> 15).astype(np.uint8)
+    to1, from1, grey = tables
+    lin = (9797 * to1[c[..., 0]] + 19234 * to1[c[..., 1]] + 3737 * to1[c[..., 2]] + 16384) >> 15
+    same = (c[..., 0] == c[..., 1]) & (c[..., 0] == c[..., 2])
+    return np.where(same, grey[c[..., 0]], from1[lin]).astype(np.uint8)
+
+
+# libpng 1.6's gamma path for rgb_to_gray (the C++ decoder's GammaPath). With
+# no screen gamma set, libpng takes the screen gamma to be the reciprocal of
+# the file's and converts through gamma tables when either lies more than
+# PNG_GAMMA_THRESHOLD_FIXED from 1.0: colour to linear, weighted and rounded,
+# and back; grey colour through the file-to-screen table. Each entry is
+# libpng's own double expression, evaluated by the C library's pow (``math``).
+_FIXED_ONE = 100000
+_GAMMA_SRGB = 45455  # PNG_GAMMA_sRGB_INVERSE
+
+
+def _gamma_significant(g: int) -> bool:
+    return g < _FIXED_ONE - 5000 or g > _FIXED_ONE + 5000
+
+
+def _fixed_round(r: float) -> int:
+    r = math.floor(r + 0.5)
+    return int(r) if -2147483648.0 <= r <= 2147483647.0 else 0
+
+
+def _gamma_table8(gamma: int) -> np.ndarray:
+    """png_build_8bit_table with png_gamma_8bit_correct."""
+    if not _gamma_significant(gamma):
+        return np.arange(256, dtype=np.uint32)
+    inner = [math.floor(255 * math.pow(v / 255.0, gamma * 0.00001) + 0.5) for v in range(1, 255)]
+    return np.array([0, *inner, 255], dtype=np.uint32)
+
+
+def _gamma_tables(file_gamma: int):
+    """(to_1, from_1, grey) for 8-bit samples, or None where libpng takes
+    the plain path."""
+    if file_gamma == 0:
+        return None
+    screen = _fixed_round(1e10 / file_gamma)
+    if not (_gamma_significant(file_gamma) or _gamma_significant(screen)):
+        return None
+    r = 1e15 / file_gamma
+    r /= screen
+    return (_gamma_table8(_fixed_round(1e10 / file_gamma)), _gamma_table8(_fixed_round(1e10 / screen)),
+            _gamma_table8(_fixed_round(r)))
+
+
+def _png_file_gamma(chunks) -> int:
+    """The file gamma (1e-5 units, 0 for none) that libpng reads from the
+    ``(type, body)`` gAMA and sRGB chunks before PLTE and IDAT whose CRC
+    holds: a gAMA out of [16, 625000000], a second stored gAMA, or an sRGB
+    with an undefined intent marks the colour space invalid, after which no
+    gAMA or sRGB is stored; sRGB sets 45455 once; a gAMA after sRGB is stored
+    only where it agrees with 45455 within the threshold."""
+    gamma, from_gama, from_srgb, invalid = 0, False, False, False
+    for ctype, body in chunks:
+        if ctype == b"gAMA" and len(body) == 4:
+            g = struct.unpack(">I", body)[0]
+            if not 16 <= g <= 625000000 or from_gama:
+                invalid = True
+            elif not invalid:
+                if from_srgb:
+                    r = math.floor(float(gamma) * _FIXED_ONE / g + 0.5)
+                    if r > 2147483647.0 or _gamma_significant(int(r)):
+                        continue
+                gamma, from_gama = g, True
+        elif ctype == b"sRGB" and len(body) == 1 and not (invalid or from_srgb):
+            if body[0] > 3:
+                invalid = True
+            else:
+                gamma, from_srgb = _GAMMA_SRGB, True
+    return gamma
 
 
 def _unfilter_png(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
@@ -165,14 +245,21 @@ def decode_png(data: bytes) -> np.ndarray:
     pos = 8
     header = None
     idat = []
+    colour = []  # gAMA and sRGB chunks libpng reads: before PLTE and IDAT, CRC intact
+    before_data = True
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
+        crc = data[pos + 8 + length : pos + 12 + length]
         pos += 12 + length  # length, type, body, CRC
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
+        elif ctype in (b"PLTE", b"IDAT"):
+            if ctype == b"IDAT":
+                idat.append(body)
+            before_data = False
+        elif ctype in (b"gAMA", b"sRGB") and before_data and crc == struct.pack(">I", zlib.crc32(ctype + body)):
+            colour.append((ctype, body))
         elif ctype == b"IEND":
             break
     if header is None:
@@ -188,7 +275,7 @@ def decode_png(data: bytes) -> np.ndarray:
     rows = _unfilter_png(zlib.decompress(b"".join(idat)), height, width * channels, channels)
     if channels == 1:
         return rows
-    return _luma_bt601(rows.reshape(height, width, channels))
+    return _luma_bt601(rows.reshape(height, width, channels), _png_file_gamma(colour))
 
 
 def decode_pnm(data: bytes) -> np.ndarray:
@@ -239,7 +326,10 @@ def _default_read_fn(path: Path) -> Optional[np.ndarray]:
     missing. The native C++ decoder goes first (every PNG and binary PGM,
     the same pixels as the numpy decoder where both read a file); what it
     does not decode, or every file under ``MVSLAM_NATIVE_DECODE=0``, goes
-    to the numpy decoder. A format neither reads raises with its name."""
+    to the numpy decoder if it is a PNG or a binary PGM/PPM (which raises on
+    a variant it does not read), and otherwise to cv2 or Pillow as in the
+    JAX package's reader (JPEG, BMP, TIFF, ...); with neither installed it
+    raises naming the format."""
     path = Path(path)
     native = _native_decoder()
     if native is not None:
@@ -253,18 +343,29 @@ def _default_read_fn(path: Path) -> Optional[np.ndarray]:
         return decode_png(data)
     if data[:2] in (b"P5", b"P6"):
         return decode_pnm(data)
-    raise ValueError(
-        f"unsupported image format {path.suffix or data[:4]!r} for {path.name}: "
-        "the default reader decodes PNG and binary PGM/PPM; pass a read_fn for other formats"
-    )
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        return cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)  # None when cv2 cannot read it
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"unsupported image format {path.suffix or data[:4]!r} for {path.name}: the default reader "
+            "decodes PNG and binary PGM/PPM itself; cv2 or Pillow would read it, and neither is installed"
+        ) from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("L"))
 
 
 class FrameStream:
     """Iterate frames loaded by one background thread.
 
     Parity: ``frame_stream.py:123-211``. ``read_fn`` is injectable for
-    tests/benchmarks (synthetic frames without disk I/O); the default
-    decodes PNG and binary PGM/PPM.
+    tests/benchmarks (synthetic frames without disk I/O); the default is
+    :func:`_default_read_fn`.
     """
 
     def __init__(

@@ -2,7 +2,7 @@
 
 Port of ``mvslam_tpu/runtime/ingestion.py`` over the port's own decoder
 (``runtime.frame_stream._default_read_fn``: the native C++ decoder, then
-numpy + zlib). Parity:
+numpy + zlib, then cv2 or Pillow for other formats). Parity:
 reference ``ingestion_pipeline.py`` — producer thread → N decode
 workers (threads, or a ProcessPoolExecutor behind dispatcher/collector
 threads — the only cross-process boundary) → output queue →

@@ -9,7 +9,9 @@ Pillow rounds its own fixed point, so colour agrees within 1 level.
 
 import io
 import struct
+import sys
 import zlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -140,8 +142,11 @@ def test_png_writer_round_trips(tmp_path):
 @pytest.mark.parametrize("what", ["16bit", "palette", "grey_alpha", "interlaced", "jpeg", "ascii_pgm"])
 def test_unsupported_formats_are_named(what, tmp_path, monkeypatch):
     """The numpy decoder names each format it does not read (the default
-    reader under ``MVSLAM_NATIVE_DECODE=0``). With the native decoder on,
-    the default reader decodes the PNG formats the numpy one does not."""
+    reader under ``MVSLAM_NATIVE_DECODE=0``); a PNG never reaches cv2 or
+    Pillow. A JPEG and an ASCII PGM, which neither port decoder reads, go
+    to cv2 or Pillow; with both blocked, the reader names their format.
+    With the native decoder on, the default reader decodes the PNG formats
+    the numpy one does not."""
     img = _image("L", seed=1)
     path = tmp_path / "x.png"
     if what == "16bit":
@@ -170,9 +175,98 @@ def test_unsupported_formats_are_named(what, tmp_path, monkeypatch):
         expected = img if what == "16bit" else np.asarray(Image.open(path).convert("L"))
         assert np.array_equal(tfs._default_read_fn(path), expected)
     monkeypatch.setenv("MVSLAM_NATIVE_DECODE", "0")
+    if what in ("jpeg", "ascii_pgm"):
+        _block_libraries(monkeypatch)
+    else:
+        monkeypatch.setitem(sys.modules, "cv2", SimpleNamespace())  # any use of it would fail
     with pytest.raises(ValueError, match=match):
         tfs._default_read_fn(path)
     assert tfs._default_read_fn(tmp_path / "missing.png") is None
+
+
+def _block_libraries(monkeypatch):
+    """Make ``import cv2`` and ``from PIL import Image`` fail."""
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+
+
+def _library_frame(h=60, w=90, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([(yy * 3 + xx) % 256, (xx * 2) % 256, (yy * 4) % 256], -1)
+    return np.clip(base + rng.integers(-20, 21, size=(h, w, 3)), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("ext", ["jpg", "bmp", "tiff"])
+@pytest.mark.parametrize("native_decode", ["1", "0"])
+def test_library_formats_equal_the_reference(ext, native_decode, tmp_path, monkeypatch):
+    """A JPEG, a BMP and a TIFF written with cv2 (colour) read equal to the
+    reference's default reader, with the native decoder on and off; with
+    cv2 blocked both fall to Pillow and agree again; with both blocked the
+    port's reader names the format."""
+    import cv2
+
+    from mvslam_tpu.runtime import frame_stream as jfs
+
+    monkeypatch.setenv("MVSLAM_NATIVE_DECODE", native_decode)
+    path = tmp_path / f"frame.{ext}"
+    assert cv2.imwrite(str(path), _library_frame(seed=len(ext)))
+    ours, ref = tfs._default_read_fn(path), jfs._default_read_fn(path)
+    assert ours is not None and ours.dtype == np.uint8 and ours.shape == (60, 90)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ours, ref = tfs._default_read_fn(path), jfs._default_read_fn(path)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, np.asarray(Image.open(path).convert("L")))
+    _block_libraries(monkeypatch)
+    with pytest.raises(ValueError, match=rf"\.{ext}.*cv2 or Pillow"):
+        tfs._default_read_fn(path)
+    assert tfs._default_read_fn(tmp_path / f"missing.{ext}") is None
+
+
+def test_images_run_over_jpegs_feeds_the_tracker_the_reference_frames(tmp_path, monkeypatch):
+    """``run_visual_slam(input_kind="images")`` over a folder of JPEGs: the
+    port's run hands its tracker the same frames, timestamps and shape (so
+    the same intrinsics) as the reference's run."""
+    import cv2
+
+    from mvslam_tpu.slam import api as japi
+    from mvslam_tpu.slam import offline as joffline
+    from mvslam_tpu_torch.slam import api as tapi
+    from mvslam_tpu_torch.slam import offline as toffline
+
+    folder = tmp_path / "jpegs"
+    folder.mkdir()
+    base = _library_frame(h=96, w=128, seed=4)
+    for i in range(4):
+        assert cv2.imwrite(str(folder / f"{i:06d}.jpg"), np.roll(base, 3 * i, axis=1))
+
+    def record(api, store):
+        run = api.SLAMSystem._run_windowed
+
+        def recording(self, frames, *args, **kwargs):
+            def tee():
+                for frame, stamp in frames:
+                    store.append((np.array(frame), stamp))
+                    yield frame, stamp
+
+            store.append(("K", self.config.fx, self.config.fy, self.config.cx, self.config.cy))
+            return run(self, tee(), *args, **kwargs)
+
+        monkeypatch.setattr(api.SLAMSystem, "_run_windowed", recording)
+
+    ours, ref = [], []
+    record(tapi, ours)
+    record(japi, ref)
+    common = dict(input_path=folder, input_kind="images", enable_loop_closure=False, seed=3)
+    toffline.run_visual_slam(toffline.SLAMRunConfig(output_root=tmp_path / "t", **common), device="cpu")
+    joffline.run_visual_slam(joffline.SLAMRunConfig(output_root=tmp_path / "j", **common))
+    assert len(ours) == len(ref) == 5
+    assert ours[0] == ref[0]
+    for (a, sa), (b, sb) in zip(ours[1:], ref[1:]):
+        assert sa == sb and a.shape == (96, 128)
+        np.testing.assert_array_equal(a, b)
 
 
 # ----------------------------------------------------------------------

@@ -227,3 +227,23 @@ def test_readiness_equals_reference(runs, tmp_path):
     ref = jready.run_readiness_report(out_path=tmp_path / "ref.json", **paths)
     assert ours == ref and ours["digest"] == ref["digest"]
     assert (tmp_path / "port.json").read_text() == (tmp_path / "ref.json").read_text()
+
+
+def test_console_scripts_name_the_port_counterparts():
+    """``pyproject.toml`` gives every console script of the JAX package a
+    ``mvslam-torch-`` counterpart at the same module path in the port, and
+    each target is a ``main(argv)`` that prints its help."""
+    import importlib
+    import tomllib
+    from pathlib import Path
+
+    scripts = tomllib.loads((Path(__file__).resolve().parents[1] / "pyproject.toml").read_text())["project"]["scripts"]
+    jax_scripts = {k: v for k, v in scripts.items() if not k.startswith("mvslam-torch-")}
+    assert jax_scripts and all(v.startswith("mvslam_tpu.") for v in jax_scripts.values())
+    for name, target in jax_scripts.items():
+        port = scripts[name.replace("mvslam-", "mvslam-torch-", 1)]
+        assert port == target.replace("mvslam_tpu.", "mvslam_tpu_torch.", 1)
+        module, func = port.split(":")
+        with pytest.raises(SystemExit) as exit_info:
+            getattr(importlib.import_module(module), func)(["--help"])
+        assert exit_info.value.code == 0

@@ -215,10 +215,12 @@ def test_frame_stream_equals_reference(tmp_path):
     assert ring.push(1) and ring.push(2) and not ring.push(3) and ring.dropped == 1 and ring.pop() == 2
 
 
-def test_frame_stream_needs_a_reader(tmp_path):
+def test_frame_stream_needs_a_reader(tmp_path, monkeypatch):
     """The port has its own default decoder now: no reader is no refusal.
-    A missing file is a counted read failure, and a format the decoder
-    cannot read raises with the format's name."""
+    A missing file is a counted read failure. A format the port's decoders
+    cannot read goes to cv2 (None where cv2 cannot read it either, as in
+    the reference's reader), and without cv2 and Pillow raises with the
+    format's name."""
     from mvslam_tpu_torch.data.synthetic import write_png_gray
 
     img = np.arange(35, dtype=np.uint8).reshape(5, 7)
@@ -228,6 +230,9 @@ def test_frame_stream_needs_a_reader(tmp_path):
     packets = list(stream)
     assert len(packets) == 1 and np.array_equal(packets[0].frame, img) and stream.stats.read_failures == 1
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not decoded here")
+    assert tfs._default_read_fn(tmp_path / "x.jpg") is None
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
     with pytest.raises(ValueError, match="jpg"):
         tfs._default_read_fn(tmp_path / "x.jpg")
 
@@ -304,19 +309,23 @@ def test_no_module_of_the_port_imports_the_reference_or_an_image_library():
     ``bench`` anywhere, and none of ``PIL`` or ``cv2`` at module level
     (the machine with the card is promised neither: the port decodes PNG
     and PGM itself). ``cv2`` stays a lazy import where the reference has
-    one too (video input, seeding its RNG, the demo's synthetic clip);
-    ``PIL`` appears nowhere."""
+    one too (video input, seeding its RNG, the demo's synthetic clip, the
+    default reader's fallback for other formats); ``PIL`` appears only in
+    that fallback, after cv2, as in the reference's reader."""
     files = sorted((REPO / "mvslam_tpu_torch").rglob("*.py"))
     assert len(files) > 60
     lazy_cv2 = set()
     for path in files:
         top, every = _imports(path)
         rel = str(path.relative_to(REPO))
-        assert not [n for n in every if n.split(".")[0] in ("jax", "jaxlib", "mvslam_tpu", "bench", "PIL")], rel
-        assert not [n for n in top if n.split(".")[0] == "cv2"], rel
+        assert not [n for n in every if n.split(".")[0] in ("jax", "jaxlib", "mvslam_tpu", "bench")], rel
+        assert not [n for n in top if n.split(".")[0] in ("cv2", "PIL")], rel
+        if rel != "mvslam_tpu_torch/runtime/frame_stream.py":
+            assert not [n for n in every if n.split(".")[0] == "PIL"], rel
         if any(n.split(".")[0] == "cv2" for n in every):
             lazy_cv2.add(rel)
     assert lazy_cv2 == {
         "mvslam_tpu_torch/core/determinism.py", "mvslam_tpu_torch/slam/offline.py",
         "mvslam_tpu_torch/data/demo_utils.py",  # the synthetic clip's video writer, as in the reference
+        "mvslam_tpu_torch/runtime/frame_stream.py",  # the default reader's fallback, as in the reference
     }
