@@ -21,7 +21,9 @@ and prints no ok line):
              in run_stream_async) and 2 (a mesh slot's block): detections and raw
              scores bit-equal over the whole map; kernel and plain times
              (CUDA events, median), device time (``torch.profiler``, mean
-             of 20 launches) against the bound from the shapes.
+             of 20 launches) against the bound from the shapes; at one
+             frame also the host µs per call (``time.perf_counter_ns``
+             over 1,000 calls, no synchronisation in between).
 3b. k1_ab  — only with ``--ab OLD.cu``, right after K1: builds OLD.cu (an
              earlier ``fast_detect.cu``) and the current one side by side
              with ``-Xptxas -v`` (registers, shared memory, spills), checks
@@ -36,11 +38,26 @@ and prints no ok line):
              at (8, 370, 1226) (the offline pipeline's window), at
              (4, 370, 1226) (the feature plane's batch), at (2, 370, 1226)
              (a mesh slot's block) and at (1, 370, 1226) (a bootstrap
-             frame, a window-1 run).
+             frame, a window-1 run), with the host µs per call at one frame.
 5. k2_lk   — ``extract_patches`` with float32 output at the LK pyramid's
              shapes (1, 370, 1226), (1, 185, 613), (1, 92, 306), 2048
              points including the clamped border band: bit-equal to the
-             plain version; the same times, bound and yardstick per level.
+             plain version; the same times, bound, yardstick and host µs
+             per call per level.
+5b. k2_ab  — only with ``--ab-k2 OLD.cu``, right after k2_lk: builds OLD.cu
+             (an earlier ``extract_patches.cu``), the current one, the five
+             designs of ``csrc/ab/extract_patches_designs.cu`` that lost to
+             it and a floor kernel (K2's grid with one load and one store
+             per tile, ``csrc/ab/extract_patches_floor.cu``), each alone
+             with ``-Xptxas -v``; checks every K2 bit-equal to the plain
+             version at every K2 row (BRIEF at 16, 8, 4, 2, 1 frames of
+             370x1226 and 8, 1 of 240x320 with 2048 and 512 points; LK's
+             three levels) and times them in turns (old, new, the designs,
+             then back, twice; the median device time) with the floor
+             beside them; host µs
+             per call of the earlier launch path (replayed step for step)
+             against the wrappers' for K2 at one frame and K1 at
+             (1, 370, 1226) on both routes, in turns.
 6. main    — ``bootstrap_frame`` + ``track_superwindow`` over the bench's
              193 frames (``data.bench_frames``, the benchmark's frames)
              with the bench configuration (2048 features, 512
@@ -225,6 +242,7 @@ imports no JAX and nothing of the reference package.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -232,6 +250,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -253,6 +272,7 @@ NUM_FEATURES = 2048
 BENCH_K = [[718.856, 0.0, 607.19], [0.0, 718.856, 185.22], [0.0, 0.0, 1.0]]
 FRAME_SHIFT_PX = 6.0  # make_frames slides its texture 6 px per frame
 LK_SHAPES = [(1, 370, 1226), (1, 185, 613), (1, 92, 306)]  # LK's three pyramid levels
+LK_BORDER_BAND = NUM_FEATURES // 3  # K2's LK points in the band where tiles clamp to the border
 # The rendered scene of the slam and flow phases: 1 + 96 frames at the
 # bench's 1226x370, 400 textured quads, the camera sliding 0.1 units along
 # x and 0.02 along z per frame (the direction of render_scene's default
@@ -377,6 +397,24 @@ def device_ms(fn, kernel: str | None = None, iters: int = 20) -> float:
     return ms
 
 
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn``: ``time.perf_counter_ns``
+    around ``calls`` calls with no synchronisation in between (the card is
+    synchronised before and after; a call that does less device work than
+    host work never waits for it)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
 def bound(nbytes: float, ops: float = 0.0) -> dict:
     """The least time (ms) the card could take: bytes over HBM bandwidth or
     operations over the float32 peak, whichever is larger."""
@@ -423,8 +461,6 @@ def phase_build() -> float:
     """nvcc builds the CUDA kernels while g++ builds the native host
     library (forced, so its time is a real compile), both from the sources
     in the checkout."""
-    import threading
-
     from mvslam_tpu_torch.core import cuda_build
     from mvslam_tpu_torch.native import build as native_build
 
@@ -471,13 +507,16 @@ def k1_route(x) -> dict:
     if not (torch.equal(det_k, det_p) and torch.equal(raw_k, raw_p)):
         raise AssertionError(f"K1 fast_detect ({label}) disagrees with its plain version (max abs err {err})")
     COMPARED["fast_detect"].add((str(x.dtype), *x.shape))
-    return with_share({
+    record = with_share({
         "route": label, "detections": int((det_k > 0).sum()), "bit_equal": True, "max_abs_err": err,
         "ms": median_ms(lambda: fast_detect(x, THRESHOLD, MARGIN)),
         "plain_ms": median_ms(lambda: fast_detect_plain(x, THRESHOLD, MARGIN)),
         "device_ms": device_ms(lambda: fast_detect(x, THRESHOLD, MARGIN), "fast_detect_kernel"),
         **k1_bound(x),
     })
+    if x.shape[0] == 1:  # one frame: the launch path's host time is most of a call
+        record["host_us_per_call"] = host_us_per_call(lambda: fast_detect(x, THRESHOLD, MARGIN))
+    return record
 
 
 def phase_k1(frames_u8, frames_f32):
@@ -501,24 +540,44 @@ def phase_k1(frames_u8, frames_f32):
     return record
 
 
-def build_k1_variant(src: Path, tag: str):
-    """``src`` (a ``fast_detect.cu``) alone into its own library, with
-    ``-Xptxas -v``; returns (ctypes library, ptxas report lines)."""
+AB_DIR = REPO / "mvslam_tpu_torch" / "_build" / "ab"
+
+
+def build_variants(variants) -> dict:
+    """Each ``(tag, source, {entry point: argtypes}, extra nvcc flags)`` of
+    ``variants`` alone into its own library with ``-Xptxas -v``, one nvcc
+    per source, all started together; returns {tag: (ctypes library, ptxas
+    report lines)}."""
     from mvslam_tpu_torch.core import cuda_build
 
-    out = REPO / "mvslam_tpu_torch" / "_build" / "ab" / f"libfast_detect_{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [cuda_build.nvcc_path(), *cuda_build._NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(out))
-    for name in ("fast_detect_u8", "fast_detect_f32"):
-        getattr(lib, name).argtypes = cuda_build._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    report = [line.split(":", 1)[-1].strip() for line in proc.stderr.splitlines()
-              if line.startswith("ptxas info") or "spill" in line]
-    return lib, report
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, src, _, flags in variants:
+        out = AB_DIR / f"lib{src.stem}_{tag}.so"
+        cmd = [cuda_build.nvcc_path(), *cuda_build._NVCC_FLAGS, "-shared", *flags, "-Xptxas", "-v",
+               "-o", str(out), str(src)]
+        procs[tag] = (out, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True))
+    built = {}
+    try:
+        stderrs = {tag: proc.communicate(timeout=600)[1] for tag, (_, proc) in procs.items()}
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for tag, src, entries, _ in variants:
+        out, proc = procs[tag]
+        stderr = stderrs[tag]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{stderr[-4000:]}")
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in entries.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        report = [line.split(":", 1)[-1].strip() for line in stderr.splitlines()
+                  if line.startswith("ptxas info") or "spill" in line]
+        built[tag] = (lib, report)
+    return built
 
 
 def phase_k1_ab(old_src: Path, frames_u8, frames_f32):
@@ -529,10 +588,13 @@ def phase_k1_ab(old_src: Path, frames_u8, frames_f32):
 
     from mvslam_tpu_torch.ops.cuda_fast import fast_detect_plain
 
-    libs, ptxas = {}, {}
-    for tag, src in (("old", old_src), ("new", REPO / "mvslam_tpu_torch" / "csrc" / "fast_detect.cu")):
-        libs[tag], ptxas[tag] = build_k1_variant(src, tag)
-    emit({"phase": "k1_ab_build", "ptxas": ptxas})
+    from mvslam_tpu_torch.core import cuda_build
+
+    entries = {name: cuda_build._SIGNATURES[name] for name in ("fast_detect_u8", "fast_detect_f32")}
+    built = build_variants([(tag, src, entries, ()) for tag, src in
+                            (("old", old_src), ("new", REPO / "mvslam_tpu_torch" / "csrc" / "fast_detect.cu"))])
+    libs = {tag: lib for tag, (lib, _) in built.items()}
+    emit({"phase": "k1_ab_build", "ptxas": {tag: report for tag, (_, report) in built.items()}})
 
     def run(tag, x):
         det = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -624,7 +686,7 @@ def k2_route(image, xy, out_dtype, label: str) -> dict:
     if not (torch.equal(got.view(bits), ref.view(bits)) and torch.equal(got.view(bits), lib_out.view(bits))):
         raise AssertionError(f"K2 extract_patches ({label}) disagrees with its plain version or the gather (max abs err {err})")
     COMPARED["extract_patches"].add((str(out_dtype), *image.shape, xy.shape[1]))
-    return with_share({
+    record = with_share({
         "route": label, "image": list(image.shape), "points": int(xy.shape[1]), "bit_equal": True, "max_abs_err": err,
         "ms": median_ms(lambda: extract_patches(image, xy, out_dtype=out_dtype)),
         "plain_ms": median_ms(lambda: extract_patches_plain(image, xy, out_dtype=out_dtype)),
@@ -632,6 +694,50 @@ def k2_route(image, xy, out_dtype, label: str) -> dict:
         "library_ms": median_ms(gather), "library_device_ms": device_ms(gather),
         **k2_bound(image, xy, out_dtype),
     })
+    if image.shape[0] == 1:  # one frame: the launch path's host time is most of a call
+        record["host_us_per_call"] = host_us_per_call(lambda: extract_patches(image, xy, out_dtype=out_dtype))
+    return record
+
+
+def k2_inputs(frames, n: int, gen) -> tuple:
+    """K2's BRIEF inputs from (B, H, W) ``frames`` on the card: their blur,
+    and ``n`` seeded points per frame spilling 20 px past every border
+    (clamped tiles), an eighth of them on exact .5 coordinates (round half
+    to even) and four at the corners."""
+    import torch
+
+    from mvslam_tpu_torch.ops.image import gaussian_blur
+
+    image = gaussian_blur(frames.to(torch.float32), sigma=2.0, radius=4)
+    b, h, w = image.shape
+    xy = torch.rand((b, n, 2), generator=gen) * torch.tensor([w + 40.0, h + 40.0]) - 20.0
+    xy[:, : n // 8] = torch.round(xy[:, : n // 8]) + 0.5
+    xy[:, n // 8 : n // 8 + 4] = torch.tensor([[-7.0, -3.0], [w + 5.0, h + 9.0], [w - 1.0, 0.0], [0.0, h - 1.0]])
+    return image, xy.to(frames.device)
+
+
+def k2_lk_inputs(frames_u8) -> list:
+    """K2's LK inputs: [(shape, image, points)] at LK's three pyramid levels
+    of one blurred bench frame, integer corners with a third of them in the
+    band where the tile clamps to the border."""
+    import torch
+
+    from mvslam_tpu_torch.ops.image import downsample2, gaussian_blur
+
+    image = gaussian_blur(frames_u8[:1].to(torch.float32), sigma=1.5, radius=2)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    levels = []
+    for shape in LK_SHAPES:
+        while tuple(image.shape) != shape:
+            image = downsample2(image)
+        b, h, w = shape
+        # LK asks for tiles at integer corners floor(p) + shift.
+        xy = torch.floor(torch.rand((b, NUM_FEATURES, 2), generator=gen) * torch.tensor([w + 0.0, h + 0.0]))
+        xy[:, :LK_BORDER_BAND] = torch.floor(
+            torch.rand((b, LK_BORDER_BAND, 2), generator=gen) * torch.tensor([w + 60.0, h + 60.0]) - 30.0
+        )
+        levels.append((shape, image, xy.to(image.device)))
+    return levels
 
 
 def phase_k2(frames_u8):
@@ -641,15 +747,10 @@ def phase_k2(frames_u8):
     import torch
 
     from mvslam_tpu_torch.ops.cuda_patches import extract_patches, extract_patches_plain
-    from mvslam_tpu_torch.ops.image import gaussian_blur
 
-    image = gaussian_blur(frames_u8[:16].to(torch.float32), sigma=2.0, radius=4)
-    b, h, w = image.shape
     gen = torch.Generator(device="cpu").manual_seed(0)
-    xy = torch.rand((b, NUM_FEATURES, 2), generator=gen) * torch.tensor([w + 40.0, h + 40.0]) - 20.0
-    xy[:, :256] = torch.round(xy[:, :256]) + 0.5  # exact .5: round half to even
-    xy[:, 256:260] = torch.tensor([[-7.0, -3.0], [w + 5.0, h + 9.0], [w - 1.0, 0.0], [0.0, h - 1.0]])
-    xy = xy.to(image.device)
+    image, xy = k2_inputs(frames_u8[:16], NUM_FEATURES, gen)
+    b = image.shape[0]
     got = extract_patches(image, xy, out_dtype=torch.float32)
     ref = extract_patches_plain(image, xy, out_dtype=torch.float32)
     torch.cuda.synchronize()
@@ -678,26 +779,220 @@ def phase_k2_lk(frames_u8):
     plain version; the image is LK's blurred pyramid of one bench frame."""
     import torch
 
-    from mvslam_tpu_torch.ops.image import downsample2, gaussian_blur
-
-    image = gaussian_blur(frames_u8[:1].to(torch.float32), sigma=1.5, radius=2)
-    gen = torch.Generator(device="cpu").manual_seed(1)
-    levels = []
-    for shape in LK_SHAPES:
-        while tuple(image.shape) != shape:
-            image = downsample2(image)
-        b, h, w = shape
-        # LK asks for tiles at integer corners floor(p) + shift; a third of
-        # the points lie in the band where the tile clamps to the border.
-        xy = torch.floor(torch.rand((b, NUM_FEATURES, 2), generator=gen) * torch.tensor([w + 0.0, h + 0.0]))
-        band = NUM_FEATURES // 3
-        xy[:, :band] = torch.floor(
-            torch.rand((b, band, 2), generator=gen) * torch.tensor([w + 60.0, h + 60.0]) - 30.0
-        )
-        levels.append({**k2_route(image, xy.to(image.device), torch.float32, f"f32 tiles, LK {shape}"),
-                       "border_band": band})
+    levels = [{**k2_route(image, xy, torch.float32, f"f32 tiles, LK {shape}"), "border_band": LK_BORDER_BAND}
+              for shape, image, xy in k2_lk_inputs(frames_u8)]
     emit({"phase": "k2_lk", "levels": levels})
     return levels
+
+
+# K2's designs that lost to the library's kernel, each built with its
+# -DDESIGN (csrc/ab/extract_patches_designs.cu), and the floor kernel.
+K2_AB_SOURCES = REPO / "mvslam_tpu_torch" / "csrc" / "ab"
+K2_DESIGNS = {"staged_vector": 1, "staged_bulk": 2, "rows_in_registers": 3, "shared_window": 4,
+              "streaming_stores": 5}
+# Counters of the earlier launch path, which the host-time A/B replays.
+EARLIER_COUNTS = collections.Counter()
+EARLIER_LOCK = threading.Lock()
+
+
+def earlier_k2_path(lib, image, xy, out_dtype=None):
+    """K2's wrapper as it was before the shared launch path
+    (``cuda_build.launch``), step for step, launching ``lib``'s kernel: six
+    checks, two ``.contiguous()``, ``torch.empty``, a ``torch.cuda.device``
+    switch, ``current_stream()``, the ctypes call, a lock and a Counter
+    keyed with ``str(out_dtype)``. The host-time A/B's earlier side."""
+    import torch
+
+    from mvslam_tpu_torch.core import cuda_build
+
+    if image.device.type == "cpu":
+        raise ValueError("the earlier launch path is timed on the card only")
+    if not image.is_cuda or xy.device != image.device:
+        raise ValueError(f"extract_patches: image on {image.device}, xy on {xy.device}")
+    if image.ndim != 3 or xy.ndim != 3 or xy.shape[0] != image.shape[0] or xy.shape[2] != 2:
+        raise ValueError(f"extract_patches: {tuple(image.shape)} and {tuple(xy.shape)}")
+    if image.dtype != torch.float32 or xy.dtype != torch.float32:
+        raise ValueError(f"extract_patches: needs float32 image and xy, got {image.dtype}, {xy.dtype}")
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"extract_patches: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    b, h, w = image.shape
+    n = xy.shape[1]
+    if h < 32 or w < 32:
+        raise ValueError(f"extract_patches: image {h}x{w} is smaller than a 32px tile")
+    image = image.contiguous()
+    xy = xy.contiguous()
+    out = torch.empty((b, n, 1024), dtype=out_dtype, device=image.device)
+    if b * n == 0:
+        return out
+    name = "extract_patches_f32" if out_dtype == torch.float32 else "extract_patches_bf16"
+    cuda_build.load()  # it looked the library up on every call
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(image.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    with EARLIER_LOCK:
+        EARLIER_COUNTS["extract_patches"] += 1
+        EARLIER_COUNTS[(str(out_dtype), b, h, w, n)] += 1
+    return out
+
+
+def earlier_k1_path(image, threshold, margin):
+    """K1's wrapper as it was before the shared launch path, step for step
+    (the kernel is the current one): the host-time A/B's earlier side."""
+    import torch
+
+    from mvslam_tpu_torch.core import cuda_build
+
+    if image.device.type == "cpu":
+        raise ValueError("the earlier launch path is timed on the card only")
+    if not image.is_cuda:
+        raise ValueError(f"fast_detect: unsupported device {image.device}")
+    if image.ndim != 3:
+        raise ValueError(f"fast_detect: expected (B, H, W), got {tuple(image.shape)}")
+    if margin < 4:
+        raise ValueError("fast_detect: margin must be >= 4 (zero taps vs wrap-around)")
+    if image.dtype == torch.uint8 and float(threshold).is_integer() and threshold >= 0:
+        name, thr = "fast_detect_u8", int(threshold)
+    else:
+        name, thr = "fast_detect_f32", float(threshold)
+        image = image.to(torch.float32)
+    image = image.contiguous()
+    b, h, w = image.shape
+    det = torch.empty((b, h, w), dtype=torch.float32, device=image.device)
+    raw = torch.empty_like(det)
+    if b * h * w == 0:
+        return det, raw
+    lib = cuda_build.load()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(image.data_ptr(), det.data_ptr(), raw.data_ptr(), b, h, w, thr, int(margin), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    with EARLIER_LOCK:
+        EARLIER_COUNTS["fast_detect"] += 1
+        EARLIER_COUNTS[(str(image.dtype), b, h, w)] += 1
+    return det, raw
+
+
+def k2_ab_rows(frames_u8) -> list:
+    """Every K2 row of the bring-up table as [(label, image, points, output
+    dtype)]: BRIEF bf16 at 16, 8, 4, 2 and 1 frames of 370x1226 (the K2
+    phase's inputs), at 8 and 1 frames of 240x320 with 2048 and 512 points
+    (the accuracy phase's shapes, on its straight scene's renders), LK f32
+    at its three pyramid levels (the k2_lk phase's inputs)."""
+    import torch
+
+    from mvslam_tpu_torch.data.synthetic import render_scene
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    image, xy = k2_inputs(frames_u8[:16], NUM_FEATURES, gen)
+    rows = [(f"bf16 tiles, BRIEF ({b}, 370, 1226)", image[:b], xy[:b], torch.bfloat16) for b in (16, 8, 4, 2, 1)]
+    small = render_scene()[0]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for n in (NUM_FEATURES, 512):
+        for b in (8, 1):
+            image, xy = k2_inputs(stacked(small, b, frames_u8.device), n, gen)
+            rows.append((f"bf16 tiles, BRIEF ({b}, 240, 320), {n} points", image, xy, torch.bfloat16))
+    rows += [(f"f32 tiles, LK {shape}", image, xy, torch.float32) for shape, image, xy in k2_lk_inputs(frames_u8)]
+    return rows
+
+
+def k2_ab_row(libs, image, xy, out_dtype, order) -> dict:
+    """One K2 row of the A/B: each library of ``order`` bit-equal to the
+    plain version, then device ms in turns (``order``; each library's time
+    is the median of its turns, since a profile now and then reads ~10%
+    low), the floor kernel's device ms, the bound; at one frame also the
+    host µs per call of the earlier launch path on ``libs["old"]`` against
+    the wrapper's, in turns."""
+    import torch
+
+    from mvslam_tpu_torch.ops.cuda_patches import PATCH_PIXELS, extract_patches, extract_patches_plain
+
+    b, h, w = image.shape
+    n = xy.shape[1]
+    name = "extract_patches_bf16" if out_dtype == torch.bfloat16 else "extract_patches_f32"
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    out = torch.empty((b, n, PATCH_PIXELS), dtype=out_dtype, device=image.device)
+    floor_out = torch.empty((b, n, PATCH_PIXELS), dtype=torch.float32, device=image.device)
+
+    def run(tag):
+        err = getattr(libs[tag], name)(image.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n,
+                                       torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K2 ({tag}) launch failed with cudaError_t {err}")
+
+    def floor():
+        err = libs["floor"].k2_floor(xy.data_ptr(), floor_out.data_ptr(), b, n, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K2's floor kernel launch failed with cudaError_t {err}")
+
+    ref = extract_patches_plain(image, xy, out_dtype=out_dtype).view(bits)
+    tags = list(dict.fromkeys(order))
+    for tag in tags:
+        out.fill_(float("nan"))  # a tile the kernel leaves unwritten cannot pass for a right one
+        run(tag)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(bits), ref):
+            raise AssertionError(f"K2 ({tag}, {tuple(image.shape)}, {n} points) disagrees with its plain version")
+    times = {tag: [] for tag in tags}
+    for tag in order:
+        times[tag].append(device_ms(lambda: run(tag), "extract_patches_kernel"))
+    bnd = k2_bound(image, xy, out_dtype)
+    median = {tag: statistics.median(v) for tag, v in times.items()}
+    record = {
+        "bit_equal": True, "image": [b, h, w], "points": n, "device_ms": times, "median_device_ms": median,
+        "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+        "bound_share": {tag: bnd["bound_ms"] / ms for tag, ms in median.items()},
+        "floor_device_ms": device_ms(floor, "k2_floor_kernel"),
+        "old_over_new": median["old"] / median["new"],
+    }
+    if b == 1:
+        host = {"earlier_path": [], "wrapper": []}
+        for which in ("earlier_path", "wrapper", "wrapper", "earlier_path"):
+            fn = ((lambda: earlier_k2_path(libs["old"], image, xy, out_dtype)) if which == "earlier_path"
+                  else (lambda: extract_patches(image, xy, out_dtype=out_dtype)))
+            host[which].append(host_us_per_call(fn))
+        record["host_us_per_call"] = host
+    return record
+
+
+def phase_k2_ab(old_src: Path, frames_u8):
+    """The earlier K2 (``old_src``) against the current one and the designs
+    that lost to it (``K2_DESIGNS``) in one process: each built alone with
+    ``-Xptxas -v`` beside the floor kernel, each bit-equal to the plain
+    version at every K2 row, device times in turns (old, new, the designs,
+    then back) with the floor beside them; host µs per call of the earlier
+    launch path against the wrappers' for K2 at one frame and for K1 at
+    (1, 370, 1226) on both routes."""
+    import torch
+
+    from mvslam_tpu_torch.core import cuda_build
+    from mvslam_tpu_torch.ops.cuda_fast import fast_detect
+
+    entries = {name: cuda_build._SIGNATURES[name] for name in ("extract_patches_f32", "extract_patches_bf16")}
+    designs = K2_AB_SOURCES / "extract_patches_designs.cu"
+    built = build_variants([
+        ("old", old_src, entries, ()),
+        ("new", REPO / "mvslam_tpu_torch" / "csrc" / "extract_patches.cu", entries, ()),
+        *((tag, designs, entries, (f"-DDESIGN={number}",)) for tag, number in K2_DESIGNS.items()),
+        ("floor", K2_AB_SOURCES / "extract_patches_floor.cu",
+         {"k2_floor": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}, ()),
+    ])
+    libs = {tag: lib for tag, (lib, _) in built.items()}
+    emit({"phase": "k2_ab_build", "ptxas": {tag: report for tag, (_, report) in built.items()}})
+    tags = ["old", "new", *K2_DESIGNS]
+    order = (*tags, *reversed(tags)) * 2
+    rows = [{"route": label, **k2_ab_row(libs, image, xy, dt, order)} for label, image, xy, dt in k2_ab_rows(frames_u8)]
+    k1_host = []
+    for x in (frames_u8[:1], frames_u8[:1].to(torch.float32)):
+        times = {"earlier_path": [], "wrapper": []}
+        for which in ("earlier_path", "wrapper", "wrapper", "earlier_path"):
+            fn = earlier_k1_path if which == "earlier_path" else fast_detect
+            times[which].append(host_us_per_call(lambda: fn(x, THRESHOLD, MARGIN)))
+        k1_host.append({"route": k1_label(x), "host_us_per_call": times})
+    emit({"phase": "k2_ab", "old": str(old_src), "rows": rows, "k1_host": k1_host})
 
 
 def render_scene_frames():
@@ -2196,8 +2491,6 @@ def new_shape_routes(path: str, f32_frames, u8_frames, dev) -> tuple:
     coordinates."""
     import torch
 
-    from mvslam_tpu_torch.ops.image import gaussian_blur
-
     k1_routes, k2_routes = [], []
     for key in sorted(LAUNCH_SHAPES[path]["fast_detect"]):
         if key not in COMPARED["fast_detect"]:
@@ -2208,13 +2501,10 @@ def new_shape_routes(path: str, f32_frames, u8_frames, dev) -> tuple:
     for key in sorted(LAUNCH_SHAPES[path]["extract_patches"]):
         if key not in COMPARED["extract_patches"]:
             out_dtype, b, h, w, n = key
-            image = gaussian_blur(stacked(f32_frames, b, dev).to(torch.float32), sigma=2.0, radius=4)
-            xy = torch.rand((b, n, 2), generator=gen) * torch.tensor([w + 40.0, h + 40.0]) - 20.0
-            xy[:, : n // 8] = torch.round(xy[:, : n // 8]) + 0.5
-            xy[:, n // 8 : n // 8 + 4] = torch.tensor([[-7.0, -3.0], [w + 5.0, h + 9.0], [w - 1.0, 0.0], [0.0, h - 1.0]])
+            image, xy = k2_inputs(stacked(f32_frames, b, dev), n, gen)
             dt = getattr(torch, out_dtype.replace("torch.", ""))
             tag = "bf16 tiles, BRIEF" if dt == torch.bfloat16 else "f32 tiles"
-            k2_routes.append({**k2_route(image, xy.to(dev), dt, f"{tag} ({b}, {h}, {w}), {n} points"), "path": path})
+            k2_routes.append({**k2_route(image, xy, dt, f"{tag} ({b}, {h}, {w}), {n} points"), "path": path})
     return k1_routes, k2_routes
 
 
@@ -2612,6 +2902,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab", type=Path, metavar="OLD.cu",
                         help="also time this earlier fast_detect.cu against the current one")
+    parser.add_argument("--ab-k2", type=Path, metavar="OLD.cu",
+                        help="also time this earlier extract_patches.cu against the current one")
     parser.add_argument("--long-offline", action="store_true",
                         help="also drive the offline phase's 1 + 60-frame scene (reported, not gated)")
     args = parser.parse_args()
@@ -2637,6 +2929,8 @@ def main() -> int:
     del frames_f32  # the main path's peak memory counts only its own tensors
     k2 = phase_k2(frames_u8)
     k2["lk_levels"] = phase_k2_lk(frames_u8)
+    if args.ab_k2 is not None:
+        phase_k2_ab(args.ab_k2.resolve(), frames_u8)
     by_path = {"main_path": phase_main(host_frames, build_s)}
     by_path["slam"], slam_summary = phase_slam(scene, torch.device("cuda", 0))
     by_path["flow"] = phase_flow(scene, torch.device("cuda", 0))

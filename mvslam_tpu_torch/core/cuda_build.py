@@ -2,12 +2,20 @@
 
 All kernels in ``csrc/*.cu`` compile into ONE shared library with a plain
 C interface, loaded with ``ctypes``: no PyTorch headers, so the build takes
-seconds. The library is built at first use into ``mvslam_tpu_torch/_build/``
+seconds (one nvcc per source, all started together, then one link). The
+library is built at first use into ``mvslam_tpu_torch/_build/``
 (git-ignored), keyed by a SHA-256 of the sources, the nvcc command and the
 nvcc version, so a source edit triggers exactly one rebuild.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, because
 only CUDA tensors reach this module.
+
+:func:`launch` is the launch path every kernel wrapper shares: it switches
+devices only when the tensors are not on the current one, takes the raw
+handle of the current stream, calls the entry point, raises on a refused
+launch and counts it. A wrapper calls it once per kernel launch (LK calls
+K2 thirty times a frame), so it costs a few microseconds of host time and
+builds nothing per call that can be built once.
 """
 
 from __future__ import annotations
@@ -18,15 +26,18 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from functools import lru_cache
 from pathlib import Path
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -80,15 +91,30 @@ def build() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a temp name, then rename: concurrent builders race benignly.
-    with tempfile.NamedTemporaryFile(dir=_BUILD_DIR, suffix=".so", delete=False) as tmp:
-        tmp_path = Path(tmp.name)
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp_path), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        tmp_path.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr[-4000:]}")
-    tmp_path.replace(out)
+    # Build in a temp directory, then rename: concurrent builders race benignly.
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
+            objects.append(str(obj))
+        try:
+            for cmd, proc in procs:
+                _, stderr = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{stderr[-4000:]}")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr[-4000:]}")
+        lib.replace(out)
     return out
 
 
@@ -106,7 +132,30 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+_ENTRIES: dict = {}  # entry point name -> ctypes function, filled at the first launch
+# Launches come from any thread (the feature plane's assembler among them).
+_COUNT_LOCK = threading.Lock()
+# The launch counters' keys hold dtypes by name, as ``str(dtype)`` gives it.
+DTYPE_NAMES = {dtype: str(dtype) for dtype in (torch.uint8, torch.float32, torch.bfloat16)}
+
+
+def launch(wrapper, name: str, shape_key: tuple, device_index: int, *args) -> None:
+    """Launch entry point ``name`` with ``args`` on the current stream of
+    CUDA device ``device_index`` (the stream is the last C argument), raise
+    if the launch was refused, then count it on ``wrapper``: ``launches``
+    and ``launch_shapes[shape_key]``."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        lib = load()
+        _ENTRIES.update((entry, getattr(lib, entry)) for entry in _SIGNATURES)
+        fn = _ENTRIES[name]
+    if device_index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    else:
+        with torch.cuda.device(device_index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.launch_shapes[shape_key] += 1

@@ -10,8 +10,9 @@ RANSAC geometric verification → best by (inliers, score, −frame_id).
 The npz field names, the dtypes on disk (uint32 descriptors) and the digest
 string are the reference's, so a snapshot written by either package loads
 in the other with its digest verified. The relocalizer's matching and
-RANSAC run on ``device`` (the card unless the caller asks for the CPU); the
-reference's native host matcher branch is not ported.
+RANSAC run on ``device`` (the card unless the caller asks for the CPU); on
+the CPU its per-candidate matching takes the C++ host matcher, as the
+reference's native branch does (``ops.hamming.matcher_for``).
 """
 
 from __future__ import annotations

@@ -14,7 +14,6 @@ circularly. Both agree under the border mask when ``margin >= 4``.
 from __future__ import annotations
 
 import collections
-import threading
 from typing import Tuple
 
 import torch
@@ -37,15 +36,15 @@ def fast_detect(image: torch.Tensor, threshold: float, margin: int = 19) -> Tupl
     kernel on the current stream: uint8 with an integral threshold >= 0 on
     its uint8 route (exact integer scores), every other input as float32.
     """
-    if image.device.type == "cpu":
+    if image.is_cpu:
         return fast_detect_plain(image, threshold, margin)
     if not image.is_cuda:
         raise ValueError(f"fast_detect: unsupported device {image.device}")
-    if image.ndim != 3:
+    if image.dim() != 3:
         raise ValueError(f"fast_detect: expected (B, H, W), got {tuple(image.shape)}")
     if margin < 4:
         raise ValueError("fast_detect: margin must be >= 4 (zero taps vs wrap-around)")
-    if image.dtype == torch.uint8 and float(threshold).is_integer() and threshold >= 0:
+    if image.dtype is torch.uint8 and float(threshold).is_integer() and threshold >= 0:
         name = "fast_detect_u8"
         thr = int(threshold)
     else:
@@ -54,24 +53,15 @@ def fast_detect(image: torch.Tensor, threshold: float, margin: int = 19) -> Tupl
         thr = float(threshold)
     image = image.contiguous()
     b, h, w = image.shape
-    det = torch.empty((b, h, w), dtype=torch.float32, device=image.device)
+    det = image.new_empty((b, h, w), dtype=torch.float32)
     raw = torch.empty_like(det)
-    if b * h * w == 0:
-        return det, raw
-    lib = cuda_build.load()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(
-            image.data_ptr(), det.data_ptr(), raw.data_ptr(), b, h, w, thr, int(margin), stream
+    if b * h * w:
+        cuda_build.launch(
+            fast_detect, name, (cuda_build.DTYPE_NAMES[image.dtype], b, h, w), image.get_device(),
+            image.data_ptr(), det.data_ptr(), raw.data_ptr(), b, h, w, thr, int(margin),
         )
-    cuda_build.check(err, name)
-    with _LAUNCH_LOCK:
-        fast_detect.launches += 1
-        fast_detect.launch_shapes[(str(image.dtype), b, h, w)] += 1
     return det, raw
 
 
-# Launches come from any thread (the feature plane's assembler among them).
-_LAUNCH_LOCK = threading.Lock()
 fast_detect.launches = 0  # kernel launches (plain-version calls do not count)
 fast_detect.launch_shapes = collections.Counter()  # the same launches by (dtype, B, H, W)

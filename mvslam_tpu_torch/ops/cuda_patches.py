@@ -11,7 +11,6 @@ against which the kernel is checked on the card.
 from __future__ import annotations
 
 import collections
-import threading
 
 import torch
 
@@ -49,42 +48,36 @@ def extract_patches(image: torch.Tensor, xy: torch.Tensor, out_dtype=None) -> to
     CPU tensors take :func:`extract_patches_plain`; CUDA tensors launch
     the kernel on the current stream.
     """
-    if image.device.type == "cpu":
+    if image.is_cpu:
         return extract_patches_plain(image, xy, out_dtype)
-    if not image.is_cuda or xy.device != image.device:
+    if not image.is_cuda or xy.get_device() != image.get_device():
         raise ValueError(f"extract_patches: image on {image.device}, xy on {xy.device}")
-    if image.ndim != 3 or xy.ndim != 3 or xy.shape[0] != image.shape[0] or xy.shape[2] != 2:
+    shape, xy_shape = image.shape, xy.shape
+    if len(shape) != 3 or len(xy_shape) != 3 or xy_shape[0] != shape[0] or xy_shape[2] != 2:
         raise ValueError(
-            f"extract_patches: expected image (B, H, W) and xy (B, N, 2), got "
-            f"{tuple(image.shape)} and {tuple(xy.shape)}"
+            f"extract_patches: expected image (B, H, W) and xy (B, N, 2), got {tuple(shape)} and {tuple(xy_shape)}"
         )
-    if image.dtype != torch.float32 or xy.dtype != torch.float32:
+    if image.dtype is not torch.float32 or xy.dtype is not torch.float32:
         raise ValueError(f"extract_patches: needs float32 image and xy, got {image.dtype}, {xy.dtype}")
     out_dtype = out_dtype or torch.float32
-    if out_dtype not in (torch.float32, torch.bfloat16):
+    entry = _ENTRY_POINTS.get(out_dtype)
+    if entry is None:
         raise ValueError(f"extract_patches: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    b, h, w = image.shape
-    n = xy.shape[1]
+    b, h, w = shape
+    n = xy_shape[1]
     if h < PATCH_DIM or w < PATCH_DIM:
         raise ValueError(f"extract_patches: image {h}x{w} is smaller than a {PATCH_DIM}px tile")
     image = image.contiguous()
     xy = xy.contiguous()
-    out = torch.empty((b, n, PATCH_PIXELS), dtype=out_dtype, device=image.device)
-    if b * n == 0:
-        return out
-    name = "extract_patches_f32" if out_dtype == torch.float32 else "extract_patches_bf16"
-    lib = cuda_build.load()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(image.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n, stream)
-    cuda_build.check(err, name)
-    with _LAUNCH_LOCK:
-        extract_patches.launches += 1
-        extract_patches.launch_shapes[(str(out_dtype), b, h, w, n)] += 1
+    out = image.new_empty((b, n, PATCH_PIXELS), dtype=out_dtype)
+    if b * n:
+        cuda_build.launch(
+            extract_patches, entry, (cuda_build.DTYPE_NAMES[out_dtype], b, h, w, n), image.get_device(),
+            image.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n,
+        )
     return out
 
 
-# Launches come from any thread (the feature plane's assembler among them).
-_LAUNCH_LOCK = threading.Lock()
+_ENTRY_POINTS = {torch.float32: "extract_patches_f32", torch.bfloat16: "extract_patches_bf16"}
 extract_patches.launches = 0  # kernel launches (plain-version calls do not count)
 extract_patches.launch_shapes = collections.Counter()  # the same launches by (output dtype, B, H, W, N)

@@ -11,13 +11,17 @@ This is host-side I/O; the windowed device-batch engine
 Port of ``mvslam_tpu/runtime/frame_stream.py``. The JAX package's default
 reader decodes with its C++ library, then cv2, then Pillow. The port's
 default reader decodes with its own C++ library (``mvslam_tpu_torch.native``)
-and then with numpy: :func:`decode_png` and :func:`decode_pnm` read 8-bit
-grey, RGB and RGBA non-interlaced PNG and binary PGM/PPM with numpy and
-``zlib``, colour to grey as libpng, and so the native decoder, does (BT.601
-in fixed point, through libpng's gamma tables where a gAMA or sRGB chunk
-calls for them). Neither cv2 nor Pillow is needed for those; other formats
-(JPEG, BMP, TIFF) go to cv2 and then Pillow where they are installed, as in
-the JAX package.
+and then, for PNG and PGM, with numpy: :func:`decode_png` and
+:func:`decode_pnm` read 8-bit grey, RGB and RGBA non-interlaced PNG and
+binary PGM/PPM with numpy and ``zlib``, colour to grey as libpng, and so
+the native decoder, does (BT.601 in fixed point, through libpng's gamma
+tables where a gAMA or sRGB chunk calls for them); on those the numpy
+decoder gives cv2's frame. Neither cv2 nor Pillow is needed for them. What
+the numpy decoders do not read (another PNG variant, a truncated or corrupt
+file), colour PPM (which the C++ decoders leave to cv2 and cv2 converts
+with its own weights) and every other format go to cv2 and then Pillow,
+where installed, as in the JAX package; colour PPM falls back to numpy
+where neither is.
 """
 
 from __future__ import annotations
@@ -239,7 +243,10 @@ def _unfilter_png(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes) -> np.ndarray:
     """Decode an 8-bit grey, RGB or RGBA non-interlaced PNG to (H, W) uint8
-    grey (alpha dropped). Any other PNG raises ``ValueError`` naming it."""
+    grey (alpha dropped). Any other PNG raises ``ValueError`` naming it; so
+    does a truncated or corrupt one (a chunk cut short, no IEND, a critical
+    chunk whose CRC fails, image data that does not inflate), which libpng
+    refuses too."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
@@ -247,18 +254,27 @@ def decode_png(data: bytes) -> np.ndarray:
     idat = []
     colour = []  # gAMA and sRGB chunks libpng reads: before PLTE and IDAT, CRC intact
     before_data = True
-    while pos + 8 <= len(data):
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError("truncated PNG: it ends before its IEND chunk")
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
         crc = data[pos + 8 + length : pos + 12 + length]
         pos += 12 + length  # length, type, body, CRC
+        if pos > len(data):
+            raise ValueError(f"truncated PNG: its {ctype.decode('latin-1')} chunk is cut short")
+        crc_holds = crc == struct.pack(">I", zlib.crc32(ctype + body))
+        if ctype[0] < 0x61 and not crc_holds:  # upper-case first letter: a critical chunk
+            raise ValueError(f"corrupt PNG: the CRC of its {ctype.decode('latin-1')} chunk fails")
         if ctype == b"IHDR":
+            if length != 13:
+                raise ValueError("corrupt PNG: its IHDR chunk is not 13 bytes")
             header = struct.unpack(">IIBBBBB", body)
         elif ctype in (b"PLTE", b"IDAT"):
             if ctype == b"IDAT":
                 idat.append(body)
             before_data = False
-        elif ctype in (b"gAMA", b"sRGB") and before_data and crc == struct.pack(">I", zlib.crc32(ctype + body)):
+        elif ctype in (b"gAMA", b"sRGB") and before_data and crc_holds:
             colour.append((ctype, body))
         elif ctype == b"IEND":
             break
@@ -272,7 +288,11 @@ def decode_png(data: bytes) -> np.ndarray:
             f"{', interlaced' if interlace else ''} (8-bit grey, RGB and RGBA, non-interlaced, are read)"
         )
     channels = _PNG_CHANNELS[color]
-    rows = _unfilter_png(zlib.decompress(b"".join(idat)), height, width * channels, channels)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as exc:
+        raise ValueError(f"corrupt PNG: its image data does not inflate ({exc})") from None
+    rows = _unfilter_png(raw, height, width * channels, channels)
     if channels == 1:
         return rows
     return _luma_bt601(rows.reshape(height, width, channels), _png_file_gamma(colour))
@@ -290,18 +310,26 @@ def decode_pnm(data: bytes) -> np.ndarray:
         while data[pos : pos + 1].isspace():
             pos += 1
         if data[pos : pos + 1] == b"#":  # comment to the end of the line
-            pos = data.index(b"\n", pos) + 1
+            pos = data.find(b"\n", pos) + 1
+            if pos == 0:
+                break
             continue
         end = pos
-        while not data[end : end + 1].isspace():
+        while end < len(data) and not data[end : end + 1].isspace():
             end += 1
+        if end == pos or end == len(data) or not data[pos:end].isdigit():
+            break
         fields.append(int(data[pos:end]))
         pos = end
+    if len(fields) < 3:
+        raise ValueError("truncated or corrupt PNM header (width, height and maxval are read)")
     pos += 1  # the single whitespace byte after maxval
     width, height, maxval = fields
     if maxval > 255:
         raise ValueError(f"unsupported PNM format: maxval {maxval} (8-bit samples are read)")
     channels = 1 if magic == b"P5" else 3
+    if len(data) - pos < width * height * channels:
+        raise ValueError("truncated PNM: fewer samples than its header gives")
     pix = np.frombuffer(data, dtype=np.uint8, count=width * height * channels, offset=pos)
     if channels == 1:
         return pix.reshape(height, width).copy()
@@ -321,15 +349,35 @@ def _native_decoder():
     return native if native.native_available() else None
 
 
+def _library_read(path: Path):
+    """cv2, then Pillow, as the JAX package's reader takes them: ``(True,
+    frame)`` from the first that is installed (cv2's frame is None where
+    cv2 cannot read the file; Pillow raises), ``(False, None)`` with
+    neither."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        return True, cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    try:
+        from PIL import Image
+    except ImportError:
+        return False, None
+    with Image.open(path) as im:
+        return True, np.asarray(im.convert("L"))
+
+
 def _default_read_fn(path: Path) -> Optional[np.ndarray]:
     """Decode one frame file to (H, W) uint8 grey; None when the file is
-    missing. The native C++ decoder goes first (every PNG and binary PGM,
-    the same pixels as the numpy decoder where both read a file); what it
-    does not decode, or every file under ``MVSLAM_NATIVE_DECODE=0``, goes
-    to the numpy decoder if it is a PNG or a binary PGM/PPM (which raises on
-    a variant it does not read), and otherwise to cv2 or Pillow as in the
-    JAX package's reader (JPEG, BMP, TIFF, ...); with neither installed it
-    raises naming the format."""
+    missing or cv2 cannot read it. The JAX package's order: the native C++
+    decoder first (every PNG and binary PGM); then, where it does not
+    decode the file or under ``MVSLAM_NATIVE_DECODE=0``, cv2 and then
+    Pillow, where installed. The numpy decoders stand in for cv2 on the
+    PNG and PGM files they read (the same frame); colour PPM, which cv2
+    converts with its own weights, goes to cv2 and Pillow and falls back to
+    numpy only where neither is installed. With neither, any other file
+    raises naming its format or why numpy did not read it."""
     path = Path(path)
     native = _native_decoder()
     if native is not None:
@@ -339,25 +387,24 @@ def _default_read_fn(path: Path) -> Optional[np.ndarray]:
     if not path.exists():
         return None
     data = path.read_bytes()
-    if data[:8] == _PNG_SIGNATURE:
-        return decode_png(data)
-    if data[:2] in (b"P5", b"P6"):
-        return decode_pnm(data)
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        return cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)  # None when cv2 cannot read it
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ValueError(
-            f"unsupported image format {path.suffix or data[:4]!r} for {path.name}: the default reader "
-            "decodes PNG and binary PGM/PPM itself; cv2 or Pillow would read it, and neither is installed"
-        ) from None
-    with Image.open(path) as im:
-        return np.asarray(im.convert("L"))
+    unread = f"unsupported image format {path.suffix or data[:4]!r}"
+    if data[:8] == _PNG_SIGNATURE or data[:2] == b"P5":
+        try:
+            return decode_pnm(data) if data[:2] == b"P5" else decode_png(data)
+        except ValueError as exc:
+            unread = str(exc)
+    installed, img = _library_read(path)
+    if installed:
+        return img
+    if data[:2] == b"P6":
+        try:
+            return decode_pnm(data)
+        except ValueError as exc:
+            unread = str(exc)
+    raise ValueError(
+        f"{unread} for {path.name}: the default reader decodes 8-bit PNG and binary PGM/PPM itself; "
+        "cv2 or Pillow would read it, and neither is installed"
+    )
 
 
 class FrameStream:

@@ -86,22 +86,73 @@ def test_fast_detect_kernel_on_plateaus_and_saturation(cuda, threshold, margin):
         assert threshold != 20.0 or (det_p > 0).sum() > 0
 
 
+def _k2_against_plain(image, xy, out_dtype):
+    """One K2 launch (none when there is nothing to extract) bit-equal to
+    the plain version."""
+    b, n = xy.shape[:2]
+    before = cuda_patches.extract_patches.launches
+    got = cuda_patches.extract_patches(image, xy, out_dtype=out_dtype)
+    ref = cuda_patches.extract_patches_plain(image, xy, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert cuda_patches.extract_patches.launches == before + (1 if b * n else 0)
+    assert got.shape == ref.shape == (b, n, 1024) and got.dtype == ref.dtype
+    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), ref.view(bits))
+    return got
+
+
+# Three frames of up to 37 keypoints take the kernel's 4-keypoint blocks;
+# of 2,048 or 8,453 its 8-keypoint blocks, of which 132 SMs hold at most 8
+# each (2,048 threads): 8,453 is past one full wave of its grid.
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 37, 2048])
+@pytest.mark.parametrize("n", [0, 1, 7, 9, 37, 2048, 132 * 8 * 8 + 5])
 def test_extract_patches_kernel_matches_plain(cuda, out_dtype, n):
+    """Counts that are no multiple of the block's keypoints, none at all,
+    and more than the card holds at once; half the points on exact .5."""
     b, h, w = 3, 70, 101
     image = torch.from_numpy(_textured(b, h, w)).to(cuda)
     rng = np.random.default_rng(n)
     xy = rng.uniform(-20, [w + 20, h + 20], size=(b, n, 2)).astype(np.float32)
     xy[:, : n // 2] = np.round(xy[:, : n // 2]) + 0.5  # round half to even
-    xy = torch.from_numpy(xy).to(cuda)
-    before = cuda_patches.extract_patches.launches
-    got = cuda_patches.extract_patches(image, xy, out_dtype=out_dtype)
-    ref = cuda_patches.extract_patches_plain(image, xy, out_dtype=out_dtype)
-    torch.cuda.synchronize()
-    assert cuda_patches.extract_patches.launches == before + 1
-    bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
-    assert torch.equal(got.view(bits), ref.view(bits))
+    _k2_against_plain(image, torch.from_numpy(xy).to(cuda), out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_extract_patches_kernel_on_the_smallest_image(cuda, out_dtype):
+    """W = H = 32: every start clamps to (0, 0), every tile is the image."""
+    image = torch.from_numpy(_textured(3, 32, 32, seed=4)).to(cuda)
+    xy = torch.from_numpy(np.random.default_rng(4).uniform(-40, 72, size=(3, 9, 2)).astype(np.float32)).to(cuda)
+    got = _k2_against_plain(image, xy, out_dtype)
+    assert torch.equal(got.float(), image.reshape(3, 1, 1024).expand(3, 9, 1024).to(out_dtype).float())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_extract_patches_kernel_clamps_at_every_border_on_half_pixels(cuda, out_dtype):
+    """Starts clamped at all four borders and the corners, and coordinates
+    exactly on .5 around each clamp point (round half to even decides
+    whether the tile moves)."""
+    b, h, w = 2, 70, 101
+    image = torch.from_numpy(_textured(b, h, w, seed=5)).to(cuda)
+    xs = [-50.0, -0.5, 0.0, 0.5, 14.5, 15.5, 16.5, 50.5, w - 17.5, w - 16.5, w - 15.5, w - 0.5, w + 20.0]
+    ys = [-30.0, -0.5, 0.5, 14.5, 15.5, 16.5, 35.5, h - 17.5, h - 16.5, h - 15.5, h - 0.5, h + 9.0]
+    grid = np.array([(x, y) for x in xs for y in ys], dtype=np.float32)
+    xy = torch.from_numpy(np.stack([grid, grid[::-1]])).to(cuda)
+    _k2_against_plain(image, xy, out_dtype)
+
+
+def test_extract_patches_kernel_rounds_bf16_ties_to_even(cuda):
+    """float32 pixels exactly halfway between two bf16 values (low 16 bits
+    0x8000) narrow to the even one, as the plain version's cast does."""
+    rng = np.random.default_rng(6)
+    high = rng.integers(0x3C00, 0x4380, size=(1, 40, 48), dtype=np.uint32)  # positive normal values
+    high[..., ::2] |= 1  # odd upper halves round up, even ones down
+    image = torch.from_numpy(((high << 16) | 0x8000).view(np.float32)).to(cuda)
+    xy = torch.from_numpy(rng.uniform(0, [48, 40], size=(1, 64, 2)).astype(np.float32)).to(cuda)
+    got = _k2_against_plain(image, xy, torch.bfloat16)
+    tiles = cuda_patches.extract_patches_plain(image, xy).view(torch.int32).cpu().numpy().view(np.uint32)
+    upper = tiles >> 16
+    even = (upper + (upper & 1)).astype(np.uint16)
+    assert np.array_equal(got.view(torch.int16).cpu().numpy().view(np.uint16), even)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

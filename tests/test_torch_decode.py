@@ -11,7 +11,7 @@ import io
 import struct
 import sys
 import zlib
-from types import SimpleNamespace
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -124,10 +124,13 @@ def test_pnm_decoder_against_pillow(mode, tmp_path):
     ref = np.asarray(Image.open(path).convert("L"))
     diff = int(np.abs(got.astype(int) - ref.astype(int)).max())
     assert diff == 0 if mode == "L" else diff <= 1
-    # A comment in the header is skipped.
+    # A comment in the header is skipped. (A colour PPM reaches the numpy
+    # decoder only where neither cv2 nor Pillow is installed.)
     body = path.read_bytes()
     commented = body[:3] + b"# made by a test\n" + body[3:]
-    assert np.array_equal(tfs.decode_pnm(commented), got)
+    assert np.array_equal(tfs.decode_pnm(commented), tfs.decode_pnm(body))
+    if mode == "L":
+        assert np.array_equal(tfs.decode_pnm(body), got)
 
 
 def test_png_writer_round_trips(tmp_path):
@@ -141,12 +144,11 @@ def test_png_writer_round_trips(tmp_path):
 
 @pytest.mark.parametrize("what", ["16bit", "palette", "grey_alpha", "interlaced", "jpeg", "ascii_pgm"])
 def test_unsupported_formats_are_named(what, tmp_path, monkeypatch):
-    """The numpy decoder names each format it does not read (the default
-    reader under ``MVSLAM_NATIVE_DECODE=0``); a PNG never reaches cv2 or
-    Pillow. A JPEG and an ASCII PGM, which neither port decoder reads, go
-    to cv2 or Pillow; with both blocked, the reader names their format.
-    With the native decoder on, the default reader decodes the PNG formats
-    the numpy one does not."""
+    """The numpy decoder names each format it does not read; under
+    ``MVSLAM_NATIVE_DECODE=0`` such a PNG, a JPEG and an ASCII PGM go to cv2
+    or Pillow, as in the JAX package's reader, and with both blocked the
+    default reader names their format. With the native decoder on, the
+    default reader decodes the PNG formats the numpy one does not."""
     img = _image("L", seed=1)
     path = tmp_path / "x.png"
     if what == "16bit":
@@ -160,7 +162,8 @@ def test_unsupported_formats_are_named(what, tmp_path, monkeypatch):
         match = "grey\\+alpha"
     elif what == "interlaced":
         data = bytearray(_encode_png(img, "L", 0))
-        data[28] = 1  # IHDR's interlace byte (the CRC is not checked)
+        data[28] = 1  # IHDR's interlace byte, then IHDR's CRC over its type and body
+        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
         path.write_bytes(bytes(data))
         match = "interlaced"
     elif what == "jpeg":
@@ -175,10 +178,7 @@ def test_unsupported_formats_are_named(what, tmp_path, monkeypatch):
         expected = img if what == "16bit" else np.asarray(Image.open(path).convert("L"))
         assert np.array_equal(tfs._default_read_fn(path), expected)
     monkeypatch.setenv("MVSLAM_NATIVE_DECODE", "0")
-    if what in ("jpeg", "ascii_pgm"):
-        _block_libraries(monkeypatch)
-    else:
-        monkeypatch.setitem(sys.modules, "cv2", SimpleNamespace())  # any use of it would fail
+    _block_libraries(monkeypatch)
     with pytest.raises(ValueError, match=match):
         tfs._default_read_fn(path)
     assert tfs._default_read_fn(tmp_path / "missing.png") is None
@@ -188,6 +188,127 @@ def _block_libraries(monkeypatch):
     """Make ``import cv2`` and ``from PIL import Image`` fail."""
     for name in ("cv2", "PIL", "PIL.Image"):
         monkeypatch.setitem(sys.modules, name, None)
+
+
+def _outcome(read, path):
+    """What a reader gives for ``path``: its frame (or None), or the type of
+    the exception it raised."""
+    try:
+        return read(path)
+    except Exception as exc:  # noqa: BLE001  (the outcome is compared, whatever it is)
+        return type(exc)
+
+
+def _reads_as_the_reference(path):
+    """The port's default reader against the reference's on one file: the
+    same frame bit for bit, or both None, or the same exception type."""
+    from mvslam_tpu.runtime import frame_stream as jfs
+
+    ours, ref = _outcome(tfs._default_read_fn, path), _outcome(jfs._default_read_fn, path)
+    if isinstance(ref, np.ndarray):
+        assert isinstance(ours, np.ndarray), (ours, "the reference read a frame")
+        assert ours.dtype == ref.dtype == np.uint8
+        np.testing.assert_array_equal(ours, ref)
+    else:
+        assert ours is ref
+    return ours
+
+
+@pytest.mark.parametrize("native_decode", ["1", "0"])
+def test_colour_ppm_reads_as_the_reference(native_decode, tmp_path, monkeypatch):
+    """A colour PPM (P6), which neither package's C++ decoder reads, is
+    cv2's frame in both (cv2 weighs colour otherwise than libpng: on this
+    seeded file the two differ by a level at many pixels); with cv2 blocked
+    both give Pillow's; with Pillow blocked too the port converts it
+    itself, with libpng's weights."""
+    pytest.importorskip("cv2")
+    monkeypatch.setenv("MVSLAM_NATIVE_DECODE", native_decode)
+    rgb = np.random.default_rng(12).integers(0, 256, size=(48, 64, 3), dtype=np.uint8)
+    path = tmp_path / "colour.ppm"
+    path.write_bytes(b"P6\n64 48\n255\n" + rgb.tobytes())
+    ours = _reads_as_the_reference(path)
+    assert ours.shape == (48, 64) and (ours != tfs._luma_bt601(rgb)).sum() > 100
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    np.testing.assert_array_equal(_reads_as_the_reference(path), np.asarray(Image.open(path).convert("L")))
+    _block_libraries(monkeypatch)
+    np.testing.assert_array_equal(tfs._default_read_fn(path), tfs._luma_bt601(rgb))
+
+
+@pytest.mark.parametrize("native_decode", ["1", "0"])
+@pytest.mark.parametrize("kind", ["pgm_16_bit", "pgm_maxval_100", "ppm_maxval_100"])
+def test_pnm_variants_read_as_the_reference(kind, native_decode, tmp_path, monkeypatch):
+    """A 16-bit PGM (which the numpy decoder does not read: cv2's frame
+    without the native decoder), a PGM with maxval 100 (the C++ decoders
+    rescale it, cv2 and numpy keep the samples) and a PPM with maxval 100."""
+    pytest.importorskip("cv2")
+    monkeypatch.setenv("MVSLAM_NATIVE_DECODE", native_decode)
+    rng = np.random.default_rng(14)
+    if kind == "pgm_16_bit":
+        data = b"P5\n64 48\n65535\n" + rng.integers(0, 65536, size=(48, 64)).astype(">u2").tobytes()
+    elif kind == "pgm_maxval_100":
+        data = b"P5\n64 48\n100\n" + rng.integers(0, 101, size=(48, 64), dtype=np.uint8).tobytes()
+    else:
+        data = b"P6\n64 48\n100\n" + rng.integers(0, 101, size=(48, 64, 3), dtype=np.uint8).tobytes()
+    path = tmp_path / ("a.ppm" if kind.startswith("ppm") else "a.pgm")
+    path.write_bytes(data)
+    assert _reads_as_the_reference(path) is not None
+
+
+GAMMA_FIXTURES = sorted(p.name for p in (Path(__file__).parent / "data" / "png_gamma").glob("*.png"))
+
+
+@pytest.mark.parametrize("name", GAMMA_FIXTURES)
+def test_gamma_fixtures_without_the_native_decoder_read_as_the_reference(name, monkeypatch):
+    """Under ``MVSLAM_NATIVE_DECODE=0`` every committed gamma fixture reads
+    as in the reference: the numpy decoder's frame where it reads the file,
+    cv2's where it does not (16-bit, palette, Adam7)."""
+    pytest.importorskip("cv2")
+    monkeypatch.setenv("MVSLAM_NATIVE_DECODE", "0")
+    assert _reads_as_the_reference(Path(__file__).parent / "data" / "png_gamma" / name) is not None
+
+
+def _damaged(kind: str) -> tuple:
+    """(file name, bytes) of a truncated or corrupt frame file, made from a
+    seeded image."""
+    rng = np.random.default_rng(13)
+    grey = rng.integers(0, 256, size=(48, 64), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(grey if "grey" in kind else np.stack([grey, grey[::-1], grey[:, ::-1]], -1)).save(buf, "PNG")
+    png = buf.getvalue()
+    idat = png.index(b"IDAT") + 4
+    pgm = b"P5\n64 48\n255\n" + grey.tobytes()
+    return {
+        "grey_png_without_iend": ("a.png", png[:-12]),
+        "rgb_png_cut_in_iend": ("a.png", png[:-6]),
+        "rgb_png_cut_in_its_data": ("a.png", png[: len(png) // 2]),
+        "grey_png_cut_in_its_header": ("a.png", png[:20]),
+        "rgb_png_with_a_bad_data_crc": ("a.png", png[:idat] + bytes([png[idat] ^ 1]) + png[idat + 1 :]),
+        "grey_pgm_cut_short": ("a.pgm", pgm[:-10]),
+        "grey_pgm_cut_in_its_header": ("a.pgm", b"P5\n64 4"),
+        "rgb_ppm_cut_short": ("a.ppm", b"P6\n64 48\n255\n" + rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()),
+    }[kind]
+
+
+@pytest.mark.parametrize("library", ["cv2", "pillow"])
+@pytest.mark.parametrize("native_decode", ["1", "0"])
+@pytest.mark.parametrize("kind", [
+    "grey_png_without_iend", "rgb_png_cut_in_iend", "rgb_png_cut_in_its_data", "grey_png_cut_in_its_header",
+    "rgb_png_with_a_bad_data_crc", "grey_pgm_cut_short", "grey_pgm_cut_in_its_header", "rgb_ppm_cut_short",
+])
+def test_truncated_and_corrupt_files_read_as_the_reference(kind, native_decode, library, tmp_path, monkeypatch):
+    """A truncated or corrupt PNG, PGM or PPM has the reference's outcome:
+    None where cv2 gives up (every case here), and with cv2 blocked Pillow's
+    frame or exception (it reads a PNG without IEND)."""
+    pytest.importorskip("cv2")
+    monkeypatch.setenv("MVSLAM_NATIVE_DECODE", native_decode)
+    if library == "pillow":
+        monkeypatch.setitem(sys.modules, "cv2", None)
+    name, data = _damaged(kind)
+    path = tmp_path / name
+    path.write_bytes(data)
+    outcome = _reads_as_the_reference(path)
+    if library == "cv2":
+        assert outcome is None
 
 
 def _library_frame(h=60, w=90, seed=0):

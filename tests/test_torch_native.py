@@ -11,6 +11,7 @@ relocalizer) against the port's device path on the CPU.
 """
 
 import struct
+import sys
 import zlib
 from types import SimpleNamespace
 
@@ -22,6 +23,7 @@ import torch_parity  # noqa: F401  (one torch thread per worker)
 from torch_parity import desc_u32, random_descriptors, to_np
 
 from mvslam_tpu import native as jnative
+from mvslam_tpu.runtime import frame_stream as jfs
 from mvslam_tpu_torch import native
 from mvslam_tpu_torch.native import build as nbuild
 from mvslam_tpu_torch.ops import hamming as thamming
@@ -235,9 +237,12 @@ def test_missing_corrupt_and_oversized_files_fail_alike(tmp_path):
 
 
 def test_default_read_fn_takes_the_native_path(tmp_path, monkeypatch):
-    """A 16-bit PNG only the native decoder reads: decoded by default,
-    refused by name under ``MVSLAM_NATIVE_DECODE=0`` (the numpy decoder).
-    A PPM, which the native decoder does not read, falls through to numpy."""
+    """A 16-bit PNG only the native decoder reads: decoded by default;
+    under ``MVSLAM_NATIVE_DECODE=0`` the numpy decoder does not read it, so
+    it goes to cv2 as in the reference's reader, and with cv2 and Pillow
+    blocked it is refused by name. A PPM, which the native decoder does
+    not read, goes to cv2 (the reference's frame), and to numpy only with
+    both blocked."""
     img = _samples(0, 16)
     path = tmp_path / "deep.png"
     path.write_bytes(encode_png(img, 0, 16, 4))
@@ -245,11 +250,15 @@ def test_default_read_fn_takes_the_native_path(tmp_path, monkeypatch):
     ppm = tmp_path / "c.ppm"
     rgb = _samples(2, 8).astype(np.uint8)
     ppm.write_bytes(b"P6\n37 19\n255\n" + rgb.tobytes())
-    np.testing.assert_array_equal(tfs._default_read_fn(ppm), tfs._luma_bt601(rgb))
+    np.testing.assert_array_equal(tfs._default_read_fn(ppm), jfs._default_read_fn(ppm))
     assert tfs._default_read_fn(tmp_path / "missing.png") is None
     monkeypatch.setenv("MVSLAM_NATIVE_DECODE", "0")
+    np.testing.assert_array_equal(tfs._default_read_fn(path), jfs._default_read_fn(path))
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
     with pytest.raises(ValueError, match="16-bit"):
         tfs._default_read_fn(path)
+    np.testing.assert_array_equal(tfs._default_read_fn(ppm), tfs._luma_bt601(rgb))
     grey = tmp_path / "g.png"
     grey.write_bytes(encode_png(_samples(0, 8), 0, 8, 3))
     np.testing.assert_array_equal(tfs._default_read_fn(grey), _samples(0, 8)[..., 0])
