@@ -64,7 +64,9 @@ and prints no ok line):
              matches, 512 E + 256 H hypotheses, window 16, 6 windows per
              call, key 0): all 192 frames tracked, both kernels launched,
              the first window's features equal a run of the plain
-             versions; tracked frames/s, time to first result, peak memory.
+             versions; tracked frames/s, time to first result, peak memory,
+             and the reduction form of the pose stage's RANSAC
+             (``ops.ransac._auto_pinned``: pinned at its 512 matches).
 7. slam    — ``SLAMSystem.run_sequence`` (window 16, 6 windows per call,
              the bench configuration, BA/relocalization/snapshots off)
              over 1 + 96 frames of a 370x1226 scene rendered by the port's
@@ -210,6 +212,11 @@ and prints no ok line):
              slots — detections, descriptors, matches, counts and
              ``use_essential`` bit-equal to the unsharded pinned run, poses
              within 1e-3, all 96 frames tracked, two runs at 4 bit-equal;
+             the default configuration's unsharded superwindow (pinned
+             RANSAC at 512 matches by ``_auto_pinned``, plain H transfer
+             votes) against the meshed run at 1 slot: choice, inlier
+             counts and masks, scores, support share and poses equal on
+             all 96 frames;
              ``batched_track_pairs`` over 8 bench pairs (features and
              matches bit-equal across sizes, poses within 1e-3);
              ``sharded_ransac_essential`` with 512 hypotheses on 2,048
@@ -2401,6 +2408,7 @@ def accuracy_tracking(name: str, root: Path, dev) -> dict:
     models = [d.model_type for d in diags[1:] if d.pose_success]
     return {"frames": len(frames), "shape": list(frames[0].shape), "posed": len(models),
             "models": {m: models.count(m) for m in sorted(set(models))}, "seconds": seconds,
+            "per_frame": [[d.model_type or "-", d.num_inliers] for d in diags[1:]],
             "ATE_RMSE": float(metrics["ATE_RMSE"]), "RPE_RMSE": float(metrics["RPE_RMSE"]),
             "input_dtype": str(np.asarray(frames[0]).dtype)}
 
@@ -2609,6 +2617,36 @@ def tree_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
+def default_against_meshed(default, meshed) -> dict:
+    """Per-frame agreement of the default configuration's superwindow with
+    the meshed (``mesh_invariant``) one: the same features and matches, the
+    same pinned RANSAC at 512 matches; the support vote of H differs in
+    form (a matvec and a sum against the pinned products)."""
+    import torch
+
+    a, b = default.pose, meshed.pose
+    frames = int(a.use_essential.numel())
+
+    def frames_equal(x, y):
+        x, y = x.reshape(frames, -1), y.reshape(frames, -1)
+        return int((x == y).all(dim=-1).sum())
+
+    return {
+        "frames": frames,
+        "features_and_matches_bit_equal": bool(torch.equal(default.features_packed.view(torch.int32),
+                                                           meshed.features_packed.view(torch.int32))
+                                               and torch.equal(default.match_mask, meshed.match_mask)),
+        "use_essential_equal_frames": frames_equal(a.use_essential, b.use_essential),
+        "num_inliers_equal_frames": frames_equal(a.num_inliers, b.num_inliers),
+        "inlier_masks_equal_frames": frames_equal(a.inliers, b.inliers),
+        "essential_score_equal_frames": frames_equal(a.essential_score, b.essential_score),
+        "homography_score_equal_frames": frames_equal(a.homography_score, b.homography_score),
+        "homography_share_equal_frames": frames_equal(a.homography_share, b.homography_share),
+        "homography_share_max_abs_diff": float((a.homography_share - b.homography_share).abs().max()),
+        "rotation_max_abs_diff": float((a.rotation - b.rotation).abs().max()),
+    }
+
+
 def phase_mesh(host_frames, dev):
     """``mvslam_tpu_torch.parallel`` on logical meshes over ``cuda:0``: the
     meshed superwindow, batched pairs, sharded RANSAC, BA, pose graph and
@@ -2655,6 +2693,12 @@ def phase_mesh(host_frames, dev):
     ref_scal = ref.scalars_packed.cpu().numpy()
     if int((ref_scal[..., 23] > 0).sum()) != n_sw:
         raise AssertionError("mesh: the unsharded superwindow did not track every frame")
+    # The default configuration's unsharded run: at 512 matches its RANSAC
+    # takes the pinned forms as the meshed run does; only the selection's H
+    # transfer votes (a matvec and a sum here, pinned under mesh_invariant)
+    # differ. Compared with the meshed run at 1 slot below.
+    _, default = tracking.track_superwindow(key, prev, frames, K, fc, RobustPoseEstimatorConfig(num_hypotheses=512),
+                                            window=WINDOW, start_index=1)
     reset_launches()
     sw = {"unsharded": {"fps": n_sw / ref_s, "peak_mem_bytes": ref_peak}}
     runs = {}
@@ -2679,7 +2723,17 @@ def phase_mesh(host_frames, dev):
     if not (tree_equal(again[1], runs[4][1]) and tree_equal(again[0], runs[4][0])):
         raise AssertionError("mesh: two superwindow runs at size 4 differ")
     sw["run_to_run_bit_equal_size_4"] = True
-    out["superwindow"] = {"frames": n_sw, "window": WINDOW, "sizes": sw}
+    against = default_against_meshed(default, runs[1][1])
+    # Gated because the H100 showed every one of them equal on all 96
+    # frames: at 512 matches both runs take the same pinned RANSAC, and on
+    # the bench frames no H transfer vote lies within the ulps by which
+    # its two forms differ. A vote that did would move the H support share
+    # first (then the choice, inliers and pose): the message names it.
+    unequal = [k for k, v in against.items() if k.endswith("_frames") and v != n_sw]
+    if unequal or not against["features_and_matches_bit_equal"] or against["rotation_max_abs_diff"] != 0.0:
+        raise AssertionError(f"mesh: the default superwindow differs from the meshed one at 1 slot in {unequal}: "
+                             f"{against} (the H transfer votes take a matvec and a sum there, pinned products here)")
+    out["superwindow"] = {"frames": n_sw, "window": WINDOW, "sizes": sw, "default_vs_meshed_1_slot": against}
 
     # 2. Batched pairs (i, i+1) of 8 bench frames.
     pairs_prev, pairs_next = frames[:8], frames[1:9]
@@ -2812,6 +2866,7 @@ def phase_main(host_frames, build_s: float):
     from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
     from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
     from mvslam_tpu_torch.ops import cuda_fast, cuda_patches
+    from mvslam_tpu_torch.ops.ransac import RansacConfig, _auto_pinned
     from mvslam_tpu_torch.slam import tracking
 
     dev = torch.device("cuda", 0)
@@ -2884,8 +2939,14 @@ def phase_main(host_frames, build_s: float):
         diff = (plain_packed.view(torch.int32) != kernel_packed.view(torch.int32)).any(-1).sum().item()
         raise AssertionError(f"first window: {diff} keypoints differ between kernels and plain versions")
 
+    # The reduction form the pose stage's dual RANSAC took: the rule of
+    # ops.ransac._auto_pinned on the correspondence count it was given.
+    n_corr = int(tracks[0].matched_p1.shape[-2])
+    ransac_form = {"correspondences": n_corr, "mesh_invariant": pc.mesh_invariant,
+                   "pinned": _auto_pinned(n_corr, RansacConfig(mesh_invariant=pc.mesh_invariant))}
+
     emit({
-        "phase": "main_path", "frames": frames_done, "frames_tracked": tracked,
+        "phase": "main_path", "frames": frames_done, "frames_tracked": tracked, "ransac": ransac_form,
         "shape": [int(v) for v in chunks[0].shape[1:]], "num_features": NUM_FEATURES, "max_matches": 512,
         "hypotheses": {"essential": 512, "homography": 256}, "window": WINDOW,
         "windows_per_call": WINDOWS_PER_CALL, "tracked_fps": frames_done / elapsed, "elapsed_s": elapsed,

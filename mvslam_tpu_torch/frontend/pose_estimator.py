@@ -52,10 +52,13 @@ class RobustPoseEstimatorConfig:
     homography_selection_share: float = 0.42
     homography_force_share: float = 0.52
     refit_rounds: int = 2
-    # True = the dual-model RANSAC and the selection's support votes run
-    # through the order-pinned forms (ops.ransac.RansacConfig.mesh_invariant):
-    # a pair gets the same bits in any batch of pairs. The meshed tracking
-    # paths (parallel/mesh.py) force it.
+    # True = the dual-model RANSAC at every match count and the H transfer
+    # votes of the selection run through the order-pinned forms
+    # (ops.ransac.RansacConfig.mesh_invariant): a pair gets the same bits in
+    # any batch of pairs. The meshed tracking paths (parallel/mesh.py) force
+    # it. False (default) = RANSAC's form follows the match count (pinned at
+    # <= 1024, ops.ransac._auto_pinned), the E support vote is pinned and the
+    # H transfer votes take a matvec and a sum, as the reference's do.
     mesh_invariant: bool = False
 
     def __post_init__(self):
@@ -212,8 +215,10 @@ def estimate_pose_device(
     sigma_sq = (e_thresh_px / 1.96) ** 2
     cutoff = (3.84 * sigma_sq)[..., None]
     fx_ = fx[..., None]
+    # E: the pinned Sampson distance (the reference's default form); H: the
+    # plain matvec and sum unless the mesh asks for the pinned forms.
+    d2_e = sampson_error(res_e.model, n1, n2, pinned=True) * fx_ * fx_
     pinned = config.mesh_invariant
-    d2_e = sampson_error(res_e.model, n1, n2, pinned) * fx_ * fx_
 
     def _transfer_sq(M, src, dst):
         y = _matvec3(M, torch.cat([src, torch.ones_like(src[..., :1])], dim=-1), pinned)

@@ -3,12 +3,14 @@
 Port of ``mvslam_tpu/geometry/epipolar.py``.
 Everything is batched over leading axes (hypotheses, frames) and works in
 normalised camera coordinates. The solvers and scorers take ``pinned``
-(default False): the order-pinned forms are elementwise only — explicit
-``(m0·x0 + m1·x1) + m2·x2`` products, outer products and
-:func:`~mvslam_tpu_torch.geometry.linalg.tree_sum` — with no ``matmul`` and
-no ``sum`` over a reduced axis, whose accumulation order CUDA picks by
-shape and alignment. A hypothesis then gets the same bits in a mesh block
-as in the whole batch (``RansacConfig.mesh_invariant``).
+(default True, as in the reference): the order-pinned forms are
+elementwise only — explicit ``(m0·x0 + m1·x1) + m2·x2`` products, outer
+products and :func:`~mvslam_tpu_torch.geometry.linalg.tree_sum` — with no
+``matmul`` and no ``sum`` over a reduced axis, whose accumulation order
+CUDA picks by shape and alignment. A hypothesis then gets the same bits
+in a mesh block as in the whole batch. RANSAC picks the form by its
+correspondence count (``ops.ransac._auto_pinned``); ``pinned=False`` is
+the matmul and sum form it takes above 1,024 correspondences.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def _homogeneous(pts: torch.Tensor) -> torch.Tensor:
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
 
 
-def _matvec3(M: torch.Tensor, x: torch.Tensor, pinned: bool = False) -> torch.Tensor:
+def _matvec3(M: torch.Tensor, x: torch.Tensor, pinned: bool = True) -> torch.Tensor:
     """(..., 3, 3) applied to (..., N, 3) rows; ``pinned``: written out as
     ``(m0·x0 + m1·x1) + m2·x2`` per output row."""
     if not pinned:
@@ -61,7 +63,7 @@ def _gram_tree(A: torch.Tensor) -> torch.Tensor:
 
 
 def _smallest_singular_vector(
-    A: torch.Tensor, rescue: bool = True, iterations: int = HYPOTHESIS_EIGVEC_ITERS, pinned: bool = False
+    A: torch.Tensor, rescue: bool = True, iterations: int = HYPOTHESIS_EIGVEC_ITERS, pinned: bool = True
 ) -> torch.Tensor:
     """Right singular vector of A (..., R, D) with the smallest singular
     value: inverse iteration on AᵀA (``pinned``: :func:`_gram_tree`)."""
@@ -120,7 +122,7 @@ def essential_from_vec(e: torch.Tensor, exact_rank2: bool, pinned: bool = False)
 
 
 def eight_point_essential(
-    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = True
 ) -> torch.Tensor:
     """Essential matrix from ≥ 8 normalised correspondences (..., N, 2).
 
@@ -139,7 +141,7 @@ def eight_point_essential(
     return essential_from_vec(e, exact_rank2=refit, pinned=pinned)
 
 
-def sampson_error(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, pinned: bool = False) -> torch.Tensor:
+def sampson_error(E: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, pinned: bool = True) -> torch.Tensor:
     """First-order geometric (Sampson) error of x2ᵀ E x1: (..., N) squared."""
     x1 = _homogeneous(pts1)
     x2 = _homogeneous(pts2)
@@ -246,7 +248,7 @@ def triangulate_normalized(
 
 
 def homography_rows(
-    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Hartley-normalised DLT constraint rows: ((..., 2N, 9), T1, T2)."""
     n1, T1 = hartley_normalization(pts1, weights, pinned=pinned)
@@ -273,7 +275,7 @@ def homography_from_vec(h: torch.Tensor, T1: torch.Tensor, T2: torch.Tensor, pin
 
 
 def dlt_homography(
-    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
+    pts1: torch.Tensor, pts2: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = True
 ) -> torch.Tensor:
     """Hartley-normalised DLT homography from ≥ 4 correspondences
     (..., N, 2), scaled to H[2, 2] = 1; ``weights`` and ``pinned`` as in
@@ -287,7 +289,7 @@ def dlt_homography(
 
 
 def symmetric_transfer_error(
-    H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, pinned: bool = False
+    H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor, pinned: bool = True
 ) -> torch.Tensor:
     """Forward + backward squared transfer error of a homography: (..., N)."""
     H_inv = inv3x3(H)

@@ -95,7 +95,7 @@ def normalize_pixels(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 
 def hartley_normalization(
-    pts: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = False
+    pts: torch.Tensor, weights: torch.Tensor | None = None, pinned: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hartley point normalisation: zero (weighted) mean, mean distance √2.
 

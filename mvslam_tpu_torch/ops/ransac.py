@@ -8,11 +8,15 @@ models are solved as one batched null-space problem, all K×N residuals
 are scored at once, and the best hypothesis of each model is refit on its
 inliers (static IRLS rounds). Batched over leading axes (frames).
 
-``RansacConfig.mesh_invariant`` selects the order-pinned solvers and
-scorers (``geometry.epipolar``'s ``pinned`` forms): a hypothesis then gets
-the same bits whatever batch it is solved in, which is what lets
-``ransac_essential``/``ransac_homography`` split the hypothesis axis over a
-mesh (``hypothesis_sharding``) without changing a bit of the result.
+Which reduction form a call takes is a rule of the reference's that
+this package keeps (:func:`_auto_pinned`): the order-pinned solvers and
+scorers (``geometry.epipolar``'s ``pinned`` forms) at N ≤ 1,024
+correspondences, the matmul and sum forms above, and the pinned forms at
+every N under ``RansacConfig.mesh_invariant``. A hypothesis solved in the
+pinned forms gets the same bits whatever batch it is solved in, which is
+what lets ``ransac_essential``/``ransac_homography`` split the hypothesis
+axis over a mesh (``hypothesis_sharding``) without changing a bit of the
+result.
 """
 
 from __future__ import annotations
@@ -49,11 +53,26 @@ class RansacConfig:
     min_inliers: int = 15
     refit_rounds: int = 2
     # True = solve and score through the order-pinned, elementwise-only
-    # forms, so every hypothesis gets the same bits in any batch (a mesh
-    # block, a slice): the meshed wrappers in parallel/mesh.py force it.
-    # False (default) = the matmul/sum forms. The reference also pins every
-    # N <= 1024 by a size rule measured on its TPU; the port does not.
+    # forms at every N, so every hypothesis gets the same bits in any batch
+    # (a mesh block, a slice): the meshed wrappers in parallel/mesh.py force
+    # it. False (default) = the form follows the correspondence count N
+    # (_auto_pinned): pinned at N <= 1024, matmul and sum forms above.
     mesh_invariant: bool = False
+
+
+# The reduction rule of the reference's RANSAC: pinned forms at N ≤ 1,024
+# correspondences (every tracking pair at 512 matches, the accuracy
+# scenes' 256, the pair gate's 192, loop geometry and relocalization at
+# 256), matmul and sum forms above (flow-first at 2,048 features). It
+# fixes the arithmetic as well as the speed: at these sizes this package
+# adds in the order the reference's source writes.
+_PINNED_N_CUTOFF = 1024
+
+
+def _auto_pinned(n: int, *configs: RansacConfig) -> bool:
+    """True where a call on N correspondences takes the order-pinned forms:
+    any config's ``mesh_invariant``, or N ≤ :data:`_PINNED_N_CUTOFF`."""
+    return any(c.mesh_invariant for c in configs) or n <= _PINNED_N_CUTOFF
 
 
 class RansacResult(NamedTuple):
@@ -159,10 +178,11 @@ def ransac_essential(
 ) -> RansacResult:
     """Essential-matrix RANSAC over normalised correspondences, Sampson
     scored; ``threshold`` (a scalar or a (...) tensor) overrides the
-    config's. ``hypothesis_sharding`` splits the hypothesis solve and
-    scoring over a mesh: with ``config.mesh_invariant`` the result is
-    bit-equal to the unsharded call on any mesh size."""
-    pinned = config.mesh_invariant
+    config's. The reduction form follows :func:`_auto_pinned`.
+    ``hypothesis_sharding`` splits the hypothesis solve and scoring over a
+    mesh: in the pinned forms the result is bit-equal to the unsharded call
+    on any mesh size."""
+    pinned = _auto_pinned(pts1.shape[-2], config)
     return _ransac(
         key, pts1, pts2, mask, config, partial(eight_point_essential, pinned=pinned),
         partial(sampson_error, pinned=pinned), 8, threshold, hypothesis_sharding,
@@ -173,9 +193,9 @@ def ransac_homography(
     key, pts1, pts2, mask, config: RansacConfig = RansacConfig(threshold=3.0), threshold=None,
     hypothesis_sharding: NamedSharding | None = None,
 ) -> RansacResult:
-    """Homography RANSAC scored by symmetric transfer error;
-    ``hypothesis_sharding`` as in :func:`ransac_essential`."""
-    pinned = config.mesh_invariant
+    """Homography RANSAC scored by symmetric transfer error; the reduction
+    form and ``hypothesis_sharding`` as in :func:`ransac_essential`."""
+    pinned = _auto_pinned(pts1.shape[-2], config)
     return _ransac(
         key, pts1, pts2, mask, config, partial(dlt_homography, pinned=pinned),
         partial(symmetric_transfer_error, pinned=pinned), 4, threshold, hypothesis_sharding,
@@ -201,10 +221,10 @@ def ransac_dual_model(
     (2×4 a sample), so the K_e + K_h hypothesis systems are ONE batched
     (K_e+K_h, 8, 9) null-space problem, and each refit round solves both
     models as one (2, 2N, 9) problem (E rows zero-padded: zero rows leave
-    AᵀA unchanged). Either config's ``mesh_invariant`` selects the
-    order-pinned forms for both models.
+    AᵀA unchanged). Both models take one reduction form:
+    :func:`_auto_pinned` over N and both configs.
     """
-    pinned = config_e.mesh_invariant or config_h.mesh_invariant
+    pinned = _auto_pinned(pts1.shape[-2], config_e, config_h)
     thr2_e = _as_threshold_sq(config_e.threshold if threshold_e is None else threshold_e, pts1)
     thr2_h = _as_threshold_sq(config_h.threshold if threshold_h is None else threshold_h, pts1)
     num_valid = mask.sum(dim=-1)

@@ -683,6 +683,57 @@ def test_pinned_forms_on_the_card_equal_their_slices(cuda, name):
     assert torch.equal(pieces.view(torch.int32), whole.view(torch.int32))
 
 
+def _noisy_pairs(n, seeds):
+    """Normalised correspondences of one 3-D or planar two-view scene per
+    seed (planar on odd seeds): 0.3 px of noise at f = 700, 30% gross
+    outliers, 10% of the entries masked out."""
+    p1s, p2s, masks = [], [], []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        z = np.full(n, 6.0) if seed % 2 else rng.uniform(4.0, 9.0, n)
+        X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), z], -1)
+        c, s = np.cos(0.03), np.sin(0.03)
+        X2 = X @ np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]).T + np.array([0.4, 0.05, 0.1])
+        p1 = X[:, :2] / X[:, 2:] + rng.normal(0.0, 4e-4, (n, 2))
+        p2 = X2[:, :2] / X2[:, 2:] + rng.normal(0.0, 4e-4, (n, 2))
+        bad = rng.random(n) < 0.3
+        p2[bad] += rng.uniform(-0.2, 0.2, (int(bad.sum()), 2))
+        p1s.append(p1)
+        p2s.append(p2)
+        masks.append(rng.random(n) > 0.1)
+    return np.stack(p1s).astype(np.float32), np.stack(p2s).astype(np.float32), np.stack(masks)
+
+
+def test_default_dual_ransac_and_pose_choice_on_the_card_equal_the_cpu(cuda):
+    """The default dual-model RANSAC at N = 512 (the bench's 512 E + 256 H
+    hypotheses) on four seeded pairs takes the order-pinned forms, which
+    are elementwise only: on the card it gives the CPU's inlier masks,
+    counts and models bit for bit. The pose estimate's model choice on the
+    same pairs is the CPU's too (its H transfer votes are a matmul and a
+    sum on both devices, of a few ulps' difference that no vote here
+    straddles)."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig, estimate_pose_device
+    from mvslam_tpu_torch.ops.ransac import RansacConfig, _auto_pinned, ransac_dual_model
+
+    p1, p2, mask = (torch.from_numpy(x) for x in _noisy_pairs(512, range(4)))
+    keys = prng.split(prng.fold_in(prng.key(7), torch.arange(4)))  # (4, 2, 2)
+    ce, ch = RansacConfig(num_hypotheses=512, threshold=2e-3), RansacConfig(num_hypotheses=256, threshold=3e-3)
+    assert _auto_pinned(512, ce, ch)
+    cpu = ransac_dual_model(keys[:, 0], keys[:, 1], p1, p2, mask, ce, ch)
+    card = ransac_dual_model(*(x.to(cuda) for x in (keys[:, 0], keys[:, 1], p1, p2, mask)), ce, ch)
+    for got, ref in ((card.essential, cpu.essential), (card.homography, cpu.homography)):
+        assert torch.equal(got.inliers.cpu(), ref.inliers) and torch.equal(got.num_inliers.cpu(), ref.num_inliers)
+        assert torch.equal(got.model.cpu(), ref.model)
+    K = torch.tensor([[700.0, 0.0, 600.0], [0.0, 700.0, 180.0], [0.0, 0.0, 1.0]])
+    px1, px2 = (p @ K[:2, :2].T + K[:2, 2] for p in (p1, p2))
+    pc = RobustPoseEstimatorConfig()
+    ref = estimate_pose_device(keys[:, 0], px1, px2, mask, K, pc)
+    got = estimate_pose_device(*(x.to(cuda) for x in (keys[:, 0], px1, px2, mask, K)), pc)
+    assert torch.equal(got.use_essential.cpu(), ref.use_essential)
+    assert torch.equal(got.inliers.cpu(), ref.inliers)
+
+
 def test_sharded_ransac_on_the_card_bit_equal_across_logical_sizes(cuda):
     """Hypothesis-sharded RANSAC over logical meshes of 1, 2, 4 and 8 slots
     on ``cuda:0``: model and inliers bit-equal to the unsharded call with

@@ -244,8 +244,9 @@ def test_pinned_form_batch_equals_slices(name):
 
 
 def test_pinned_eigvec_and_default_path_unchanged():
-    """The pinned inverse iteration is bit-stable across slices; the default
-    (unpinned) solvers are what they were (the plain-sum forms)."""
+    """The pinned inverse iteration is bit-stable across slices; the
+    default solver is the pinned form (the reference's default), and
+    ``pinned=False`` is what it was (the plain-sum forms)."""
     p1, p2 = _samples(k=32)
     rows = tep.essential_rows(t(p1), t(p2))
     gram = rows.transpose(-1, -2) @ rows
@@ -255,8 +256,12 @@ def test_pinned_eigvec_and_default_path_unchanged():
         to_np(whole),
     )
     default = tep.eight_point_essential(t(p1), t(p2))
+    pinned = tep.essential_from_vec(
+        tla.smallest_eigvec_psd(tep._gram_tree(rows), rescue=False, pinned=True), exact_rank2=False, pinned=True)
+    np.testing.assert_array_equal(to_np(default), to_np(pinned))
+    unpinned = tep.eight_point_essential(t(p1), t(p2), pinned=False)
     plain = tep.essential_from_vec(tla.smallest_eigvec_psd(gram, rescue=False), exact_rank2=False)
-    np.testing.assert_array_equal(to_np(default), to_np(plain))
+    np.testing.assert_array_equal(to_np(unpinned), to_np(plain))
 
 
 # ---------------------------------------------------------------------------
