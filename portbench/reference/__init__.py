@@ -1,0 +1,1 @@
+"""Plain reference that decides ``correct``; imports nothing of the program."""
