@@ -45,6 +45,7 @@ from mvslam_tpu_torch.backend.segments import segment_sum, segment_table
 from mvslam_tpu_torch.backend.solvers import _solve_pos
 from mvslam_tpu_torch.core import prng
 from mvslam_tpu_torch.core.sharding import NamedSharding, add_in_order, blocks
+from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder, timed_event
 from mvslam_tpu_torch.geometry.lie import se3_matrix, so3_exp, so3_log
 from mvslam_tpu_torch.geometry.linalg import inv3x3
 from mvslam_tpu_torch.geometry.projection import normalize_pixels
@@ -422,8 +423,10 @@ class WindowBundleAdjuster:
         max_track_error_px: float = 12.0,
         max_pose_move_ratio: float = 0.6,
         device="cuda",
+        recorder: Optional[RunTelemetryRecorder] = None,
     ) -> None:
         self.K = np.asarray(K)
+        self.recorder = recorder
         self.config = config or BundleAdjustmentConfig()
         self.max_track_error_px = float(max_track_error_px)
         self.max_pose_move_ratio = float(max_pose_move_ratio)
@@ -454,23 +457,55 @@ class WindowBundleAdjuster:
         return np.stack([buf[:M].astype(np.int64), buf[M : 2 * M].astype(np.int64)], axis=1)[mask]
 
     def refine_window(self, window, key=None) -> Optional[BAResult]:
+        """Refine the window's keyframe poses in place; None where the window
+        gives too little to solve. With a recorder, its three parts are
+        spans: ``ba_gate`` (each pair gate the cache misses), ``ba_tracks``
+        (track chaining, triangulation and the reprojection gate) and
+        ``ba_solve`` (the solve, which ends in its one fetch)."""
         if len(window) < 2:
             return None
         key = prng.key(0, self.device) if key is None else key.to(self.device)
         poses = np.stack([kf.pose for kf in window])
-        # Chain the RANSAC-gated consecutive matches into multi-view tracks
-        # (feature i in kf k matched to j in kf k+1 extends i's track).
-        track_obs: List[List[tuple]] = []  # track -> [(kf_idx, feature_idx)]
-        prev_assign: dict = {}
+        gated = []
         for k in range(len(window) - 1):
             a, b = window[k], window[k + 1]
             cache_key = (a.frame_id, b.frame_id)
             pairs = self._pair_cache.get(cache_key)
             if pairs is None:
-                pairs = self._gate_pair(key, a, b)
+                with timed_event(self.recorder, "ba_gate", metadata={"pair": [a.frame_id, b.frame_id]}):
+                    pairs = self._gate_pair(key, a, b)
                 self._pair_cache[cache_key] = pairs
                 if len(self._pair_cache) > 4 * max(len(window), 2):  # keep pairs that can recur
                     self._pair_cache.pop(next(iter(self._pair_cache)))
+            gated.append(pairs)
+        with timed_event(self.recorder, "ba_tracks"):
+            built = self._observations(window, poses, gated)
+        if built is None:
+            return None
+        kept_points, observations = built
+        with timed_event(self.recorder, "ba_solve", metadata={"points": len(kept_points)}):
+            result = run_bundle_adjustment(poses, np.stack(kept_points), observations, self.K, self.config,
+                                           device=self.device)
+        self.last_diagnostics = result.diagnostics
+        # Update-magnitude gate: a pose dragged beyond a share of the
+        # keyframe spacing escaped along a weak monocular mode.
+        spacing = np.median(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=1))
+        moves = np.linalg.norm(result.poses[:, :3, 3] - poses[:, :3, 3], axis=1)
+        if moves.max() > self.max_pose_move_ratio * max(spacing, 1e-9):
+            result.diagnostics.conditioning_tripped = True
+        if not result.diagnostics.conditioning_tripped:
+            for kf, pose in zip(window, result.poses):
+                kf.pose = pose
+        return result
+
+    def _observations(self, window, poses, gated):
+        """The kept points and their observations from each consecutive
+        pair's gated matches ``gated``; None where too few survive."""
+        # Chain the RANSAC-gated consecutive matches into multi-view tracks
+        # (feature i in kf k matched to j in kf k+1 extends i's track).
+        track_obs: List[List[tuple]] = []  # track -> [(kf_idx, feature_idx)]
+        prev_assign: dict = {}
+        for k, pairs in enumerate(gated):
             cur_assign: dict = {}
             for i, j in pairs:
                 tid = prev_assign.get(int(i))
@@ -529,16 +564,4 @@ class WindowBundleAdjuster:
                 observations.append(Observation(k, pt_id, window[k].keypoints[feat].astype(np.float64)))
         if len(kept_points) < 8:
             return None
-        result = run_bundle_adjustment(poses, np.stack(kept_points), observations, self.K, self.config,
-                                       device=self.device)
-        self.last_diagnostics = result.diagnostics
-        # Update-magnitude gate: a pose dragged beyond a share of the
-        # keyframe spacing escaped along a weak monocular mode.
-        spacing = np.median(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0), axis=1))
-        moves = np.linalg.norm(result.poses[:, :3, 3] - poses[:, :3, 3], axis=1)
-        if moves.max() > self.max_pose_move_ratio * max(spacing, 1e-9):
-            result.diagnostics.conditioning_tripped = True
-        if not result.diagnostics.conditioning_tripped:
-            for kf, pose in zip(window, result.poses):
-                kf.pose = pose
-        return result
+        return kept_points, observations

@@ -25,6 +25,12 @@ An exception during extraction becomes ``feature_error`` results, an
 event and a breaker count, as in the reference: a caller that must not
 lose frames checks the results and the events.
 
+Given the system's telemetry recorder, the plane records per frame
+``feature_queue`` (from ``submit`` to the start of its extraction) and per
+batch ``feature_batch`` (frame ids and fill) on its own thread, and stamps
+each result with the moment it was ready (``FeatureResult.ready_s``), all
+on the recorder's clock.
+
 Process isolation: the reference's ProcessPoolExecutor feature workers
 (``feature_control_plane.py:248-319``) are not reproduced, as in the JAX
 package: a worker process would need a CUDA context of its own on the
@@ -40,7 +46,7 @@ import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +54,7 @@ import torch
 
 from mvslam_tpu_torch.core.integrity import stable_event_digest
 from mvslam_tpu_torch.core.persistence import StreamingMoments
+from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder, timed_event
 from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipeline, FeaturePipelineConfig, FeatureSet
 from mvslam_tpu_torch.runtime.ingestion_control import (
     CircuitBreaker,
@@ -99,6 +106,7 @@ class FeatureResult:
     num_features: int
     from_cache: bool = False
     error: Optional[str] = None
+    ready_s: Optional[float] = field(default=None, compare=False)  # the recorder's clock
 
     @property
     def ok(self) -> bool:
@@ -155,6 +163,7 @@ class _PendingItem:
     frame: np.ndarray
     cache_key: str
     future: Future
+    submitted_s: Optional[float] = None  # the recorder's clock
 
 
 _ASSEMBLER_STOP = object()
@@ -172,8 +181,10 @@ class FeatureControlPlane:
         config: Optional[FeatureControlConfig] = None,
         clock=time.monotonic,
         device="cuda",
+        recorder: Optional[RunTelemetryRecorder] = None,
     ) -> None:
         self.config = config or FeatureControlConfig()
+        self._recorder = recorder
         self.feature_config = feature_config or FeaturePipelineConfig()
         self._pipeline = FeaturePipeline(self.feature_config, device=device)
         self.device = self._pipeline.device
@@ -247,16 +258,26 @@ class FeatureControlPlane:
 
     # -- worker ----------------------------------------------------------
 
-    def _extract(self, seq_id: int, frame: np.ndarray, cache_key: str) -> FeatureResult:
+    def _now(self) -> Optional[float]:
+        return None if self._recorder is None else self._recorder.now()
+
+    def _queued(self, seq_id: int, submitted_s: Optional[float]) -> None:
+        if self._recorder is not None and submitted_s is not None:
+            self._recorder.span("feature_queue", submitted_s, self._recorder.now(), {"frame_id": seq_id})
+
+    def _extract(self, seq_id: int, frame: np.ndarray, cache_key: str, submitted_s=None) -> FeatureResult:
+        self._queued(seq_id, submitted_s)
         start = time.perf_counter()
         try:
-            xy, desc, valid = self._host_features(self._pipeline.detect_and_describe(frame))
+            with timed_event(self._recorder, "feature_batch", metadata={"frame_ids": [seq_id], "fill": 1}):
+                xy, desc, valid = self._host_features(self._pipeline.detect_and_describe(frame))
             result = FeatureResult(
                 seq_id=seq_id,
                 keypoints=xy,
                 descriptors=desc,
                 valid=valid,
                 num_features=int(valid.sum()),
+                ready_s=self._now(),
             )
             self._cache.put(cache_key, result)
             self.breaker.record_success()
@@ -271,6 +292,7 @@ class FeatureControlPlane:
                 valid=np.zeros(0, bool),
                 num_features=0,
                 error=f"{type(exc).__name__}: {exc}",
+                ready_s=self._now(),
             )
         finally:
             self._latency.update(time.perf_counter() - start)
@@ -318,7 +340,11 @@ class FeatureControlPlane:
                     carry = nxt  # starts the next batch
                     break
                 batch.append(nxt)
-            self._extract_batch(batch)
+            for it in batch:
+                self._queued(it.seq_id, it.submitted_s)
+            meta = {"frame_ids": [it.seq_id for it in batch], "fill": len(batch)}
+            with timed_event(self._recorder, "feature_batch", metadata=meta):
+                self._extract_batch(batch)
             if stop:
                 return
 
@@ -347,6 +373,7 @@ class FeatureControlPlane:
                     descriptors=desc[i],
                     valid=valid[i],
                     num_features=int(valid[i].sum()),
+                    ready_s=self._now(),
                 )
                 self._cache.put(it.cache_key, result)
                 it.future.set_result(result)
@@ -369,6 +396,7 @@ class FeatureControlPlane:
                         valid=np.zeros(0, bool),
                         num_features=0,
                         error=f"{type(exc).__name__}: {exc}",
+                        ready_s=self._now(),
                     )
                 )
         finally:
@@ -389,6 +417,7 @@ class FeatureControlPlane:
         """
         if self._closed:
             raise RuntimeError("control plane closed")
+        submitted_s = self._now()
         if not self.breaker.allow():
             self.rejected += 1
             self.events.emit("submit_rejected", message="circuit_breaker_open", seq_id=seq_id)
@@ -405,6 +434,7 @@ class FeatureControlPlane:
                     valid=cached.valid,
                     num_features=cached.num_features,
                     from_cache=True,
+                    ready_s=self._now(),
                 )
             self.submitted += 1
             self.completed += 1
@@ -417,9 +447,9 @@ class FeatureControlPlane:
             future: Future = Future()
             with self._lock:
                 self._futures[seq_id] = future
-            self._batch_queue.put(_PendingItem(seq_id, frame, cache_key, future))
+            self._batch_queue.put(_PendingItem(seq_id, frame, cache_key, future, submitted_s))
         else:
-            future = self._executor.submit(self._extract, seq_id, frame, cache_key)
+            future = self._executor.submit(self._extract, seq_id, frame, cache_key, submitted_s)
             with self._lock:
                 self._futures[seq_id] = future
         self.submitted += 1

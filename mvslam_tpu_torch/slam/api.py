@@ -187,7 +187,9 @@ class SLAMSystem:
         self._relocalizer = None  # set via load_map_snapshot / built on demand
         self._map_snapshot = None
         self._local_ba = (
-            WindowBundleAdjuster(self.K, device=self.device) if self.config.enable_local_ba else None
+            WindowBundleAdjuster(self.K, device=self.device, recorder=self.telemetry)
+            if self.config.enable_local_ba
+            else None
         )
         matcher_for(self.device)  # on the CPU: builds the C++ matcher now, not in the first match
 
@@ -251,11 +253,14 @@ class SLAMSystem:
                         self._K_dev,
                         self.config.feature,
                         self.config.pose,
+                        recorder=self.telemetry,
                     )
                     scalars = pull_scalars(track)
 
             self._prev_features = features
-            self._handle_tracked_frame(frame_id, timestamp, diag, scalars, lambda: pull_features(track))
+            self._handle_tracked_frame(
+                frame_id, timestamp, diag, scalars, lambda: pull_features(track, self.telemetry)
+            )
         return diag
 
     def _track_flow_first(self, key, frame_dev, frame_id):
@@ -292,6 +297,7 @@ class SLAMSystem:
                 self._K_dev,
                 self.config.feature,
                 self.config.pose,
+                self.telemetry,
             )
             scalars = pull_scalars(track)
         return features, track, scalars
@@ -329,8 +335,7 @@ class SLAMSystem:
             if frame_id in self._injected_losses:
                 diag.injected_loss = True
                 raise PoseEstimationFailure("injected_tracking_loss", metrics=metrics)
-            with timed_event(self.telemetry, "pose_estimate", metadata={"frame_id": frame_id}):
-                apply_stability_gates(self.config.pose, metrics)
+            apply_stability_gates(self.config.pose, metrics)
             R = np.asarray(scalars["rotation"], dtype=np.float64)
             t = np.asarray(scalars["translation"], dtype=np.float64)
             # X2 = R X1 + t ⇒ cam1→cam2; pose chain needs cam2 in world:
@@ -479,9 +484,17 @@ class SLAMSystem:
         ``on_frame(diag)`` runs after each frame's host bookkeeping; in
         windowed mode it lags the device by one dispatch, like the rest of
         the host logic.
+
+        Spans (``self.telemetry``): ``run_sequence`` around the call; per
+        dispatch ``dispatch_stage`` (pulling, stacking, padding and
+        uploading its frames), ``track_enqueue`` (launching its windows;
+        their ``detect``/``match``/``pose`` ``.device`` spans are its
+        children) and ``scalar_pull``; per frame ``frame_process``, with
+        ``keyframe_pull`` inside it where a keyframe pulls features.
         """
         ts = timestamps if timestamps is not None else [float(i) for i in range(len(frames))]
-        return self._run_windowed(zip(frames, ts), window, windows_per_dispatch, on_frame)
+        with timed_event(self.telemetry, "run_sequence", metadata={"frames": len(frames)}):
+            return self._run_windowed(zip(frames, ts), window, windows_per_dispatch, on_frame)
 
     def _run_windowed(
         self, pair_iter, window: int, windows_per_dispatch: int = 1, on_frame=None
@@ -512,8 +525,10 @@ class SLAMSystem:
         exhausted = False
 
         def stage():
-            """Pull up to `dispatch_size` pairs from the iterator; upload them."""
+            """Pull up to `dispatch_size` pairs from the iterator; upload them
+            (the span ``dispatch_stage``, where there were frames)."""
             nonlocal exhausted
+            start = self.telemetry.now()
             chunk, chunk_ts = [], []
             for _ in range(dispatch_size):
                 item = next(pair_iter, None)
@@ -531,19 +546,25 @@ class SLAMSystem:
             while len(chunk) < dispatch_size:
                 chunk.append(chunk[-1])
             # np.stack already made a fresh array: upload it without a copy.
-            return torch.from_numpy(np.stack(chunk)).to(self.device), chunk_ts, real
+            stacked = np.stack(chunk)
+            frames_dev = torch.from_numpy(stacked).to(self.device)
+            self.telemetry.span(
+                "dispatch_stage", start, self.telemetry.now(), {"frames": real, "bytes": int(stacked.nbytes)}
+            )
+            return frames_dev, chunk_ts, real
 
         def process(inflight) -> None:
             """Pull one dispatch's scalars and run the per-frame host logic."""
             track, chunk_ts, start_id, real = inflight
-            bundle = pull_scalars(track)  # ONE fetch covers every scalar
+            with timed_event(self.telemetry, "scalar_pull", metadata={"start": start_id}):
+                bundle = pull_scalars(track)  # ONE fetch covers every scalar
             if super_windows > 1:
                 # Superwindow leaves are (S, window, ...); flatten to per-frame.
                 bundle = {k: v.reshape(dispatch_size, *v.shape[2:]) for k, v in bundle.items()}
 
             def provider_for(i):
                 def provider():
-                    xy, desc, valid = pull_features(track)
+                    xy, desc, valid = pull_features(track, self.telemetry)
                     if super_windows > 1:
                         xy = xy.reshape(dispatch_size, *xy.shape[2:])
                         desc = desc.reshape(dispatch_size, *desc.shape[2:])
@@ -579,7 +600,7 @@ class SLAMSystem:
                 start_id = self._frame_count
                 self._frame_count += real
                 with timed_event(
-                    self.telemetry, "track_window", metadata={"start": start_id, "size": real}
+                    self.telemetry, "track_enqueue", metadata={"start": start_id, "frames": real}
                 ):
                     if super_windows > 1:
                         last, track = track_superwindow(
@@ -591,6 +612,7 @@ class SLAMSystem:
                             self.config.pose,
                             window=window,
                             start_index=start_id,
+                            recorder=self.telemetry,
                         )
                         # Padding repeats the last real frame, so the final
                         # carried FeatureSet equals the real last frame's.
@@ -604,6 +626,7 @@ class SLAMSystem:
                             self.config.feature,
                             self.config.pose,
                             start_index=start_id,
+                            recorder=self.telemetry,
                         )
                         self._prev_features = type(feats)(*(a[real - 1] for a in feats))
                 if self.config.pose_source == "flow_first":
@@ -646,18 +669,36 @@ class SLAMSystem:
         ``fold_in(tracking key, frame id)``, the key ``process_frame`` uses,
         so both paths give one trajectory. On close a ``ControlPlaneHub``
         report of both planes is saved as ``control_plane_report``.
+
+        Spans (``self.telemetry``; each of one frame carries its
+        ``frame_id``): ``run_stream_async`` around the call;
+        ``input_wait`` around each pull from ``packets``; on the feature
+        plane's thread ``feature_queue`` (submit to its batch's start) and
+        ``feature_batch`` (one per batch); ``ready_wait`` from the moment
+        a frame's features are ready to the start of its tracking, and
+        ``frame_process`` around its tracking, with ``track_step`` and
+        ``local_ba`` inside.
         """
         from mvslam_tpu_torch.runtime.feature_plane import FeatureControlPlane
         from mvslam_tpu_torch.runtime.hub import ControlPlaneHub, ControlPlaneStageAdapter
         from mvslam_tpu_torch.runtime.tracking_plane import TrackingControlPlane
         from mvslam_tpu_torch.slam.tracking import feature_set_from_arrays
 
-        feature_plane = FeatureControlPlane(self.config.feature, feature_control_config, device=self.device)
+        feature_plane = FeatureControlPlane(
+            self.config.feature, feature_control_config, device=self.device, recorder=self.telemetry
+        )
         control_plane = TrackingControlPlane(feature_plane, tracking_control_config)
         diags: List[FrameDiagnostics] = []
         prev_fs = self._prev_features
 
         def handle(result) -> None:
+            fr = result.feature_result
+            if fr is not None and fr.ready_s is not None:
+                self.telemetry.span("ready_wait", fr.ready_s, self.telemetry.now(), {"frame_id": result.seq_id})
+            with timed_event(self.telemetry, "frame_process", metadata={"frame_id": result.seq_id}):
+                track_result(result)
+
+        def track_result(result) -> None:
             nonlocal prev_fs
             frame_id = result.seq_id
             timestamp = float(result.timestamp)
@@ -689,7 +730,7 @@ class SLAMSystem:
             key = prng.fold_in(self._track_key, frame_id)
             with timed_event(self.telemetry, "track_step", metadata={"frame_id": frame_id}):
                 track = match_and_estimate(
-                    key, prev_fs, cur_fs, self._K_dev, self.config.feature, self.config.pose
+                    key, prev_fs, cur_fs, self._K_dev, self.config.feature, self.config.pose, self.telemetry
                 )
                 scalars = pull_scalars(track)
             prev_fs = cur_fs
@@ -709,19 +750,27 @@ class SLAMSystem:
                 torch.cuda.synchronize(self.device)
 
         warmed = False
+        packets, end = iter(packets), object()
         try:
-            for packet in packets:
-                frame = np.asarray(packet.frame)
-                if not warmed:
-                    warm(frame)
-                    warmed = True
-                frame_id = self._frame_count
-                self._frame_count += 1
-                control_plane.submit_frame(frame_id, packet.timestamp, frame)
-                for result in control_plane.drain_ready():
+            with timed_event(self.telemetry, "run_stream_async"):
+                while True:
+                    with timed_event(self.telemetry, "input_wait") as meta:
+                        packet = next(packets, end)
+                        if packet is not end:
+                            meta["frame_id"] = self._frame_count
+                    if packet is end:
+                        break
+                    frame = np.asarray(packet.frame)
+                    if not warmed:
+                        warm(frame)
+                        warmed = True
+                    frame_id = self._frame_count
+                    self._frame_count += 1
+                    control_plane.submit_frame(frame_id, packet.timestamp, frame)
+                    for result in control_plane.drain_ready():
+                        handle(result)
+                for result in control_plane.collect():
                     handle(result)
-            for result in control_plane.collect():
-                handle(result)
         finally:
             hub = ControlPlaneHub(
                 [

@@ -15,6 +15,11 @@ are split over a mesh (``parallel.mesh.track_superwindow_meshed``).
 ``track_frame_flow`` is the flow-first step (pose from pyramidal LK tracks
 of the previous keypoints, ``ops.lk``), and ``match_and_estimate`` the
 matching fallback over two already-extracted feature sets.
+
+Given a ``recorder``, the feature-matching steps time their three stages
+on the device (``core.telemetry.device_span``): ``detect`` (K1, K2,
+BRIEF), ``match`` (matching, selection, gathering the matched points) and
+``pose`` (the pose stage through the packed outputs), once per window.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from mvslam_tpu_torch.core import prng
+from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder, device_span, timed_event
 from mvslam_tpu_torch.core.sharding import NamedSharding, blocks, concat
 from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig, FeatureSet
 from mvslam_tpu_torch.frontend.pose_estimator import (
@@ -162,25 +168,28 @@ def _track_pairs(
     K: torch.Tensor,
     feature_config: FeaturePipelineConfig,
     pose_config: RobustPoseEstimatorConfig,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> TrackResult:
     """Match f1 → f2 and estimate each pair's pose (batched over pairs)."""
     _, _, match_cfg = _configs(feature_config)
-    result = match_descriptors(f1.descriptors, f1.valid, f2.descriptors, f2.valid, match_cfg)
-    selected = select_matches(result, max_matches=feature_config.max_matches)
-    p1, p2 = gather_matched_points(f1.xy, f2.xy, selected)
-    pose = estimate_pose_device(keys, p1, p2, selected.valid, K, pose_config)
-    num_features = f2.valid.sum(dim=-1).to(torch.int32)
-    return TrackResult(
-        pose=pose,
-        matched_p1=p1,
-        matched_p2=p2,
-        match_mask=selected.valid,
-        match_distances=selected.distances,
-        num_matches=selected.num_valid,
-        num_features=num_features,
-        scalars_packed=_pack_values(pose, selected.num_valid, num_features),
-        features_packed=_pack_features(f2),
-    )
+    with device_span(recorder, "match", keys.device):
+        result = match_descriptors(f1.descriptors, f1.valid, f2.descriptors, f2.valid, match_cfg)
+        selected = select_matches(result, max_matches=feature_config.max_matches)
+        p1, p2 = gather_matched_points(f1.xy, f2.xy, selected)
+    with device_span(recorder, "pose", keys.device):
+        pose = estimate_pose_device(keys, p1, p2, selected.valid, K, pose_config)
+        num_features = f2.valid.sum(dim=-1).to(torch.int32)
+        return TrackResult(
+            pose=pose,
+            matched_p1=p1,
+            matched_p2=p2,
+            match_mask=selected.valid,
+            match_distances=selected.distances,
+            num_matches=selected.num_valid,
+            num_features=num_features,
+            scalars_packed=_pack_values(pose, selected.num_valid, num_features),
+            features_packed=_pack_features(f2),
+        )
 
 
 def track_frame(
@@ -190,12 +199,14 @@ def track_frame(
     K: torch.Tensor,
     feature_config: FeaturePipelineConfig,
     pose_config: RobustPoseEstimatorConfig,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> Tuple[FeatureSet, TrackResult]:
     """Detect+describe one frame, match it against ``prev_features`` and
     estimate the pose, with ``key`` used as is (no frame-id fold)."""
-    features = _detect_describe(frame[None], feature_config)
+    with device_span(recorder, "detect", frame.device):
+        features = _detect_describe(frame[None], feature_config)
     prev = _stack([prev_features])
-    track = _track_pairs(key[None], prev, features, K, feature_config, pose_config)
+    track = _track_pairs(key[None], prev, features, K, feature_config, pose_config, recorder)
     return _index(features, 0), _index(track, 0)
 
 
@@ -249,11 +260,12 @@ def match_and_estimate(
     K: torch.Tensor,
     feature_config: FeaturePipelineConfig,
     pose_config: RobustPoseEstimatorConfig,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> TrackResult:
     """Match two already-extracted feature sets and estimate the pose,
     with ``key`` used as is."""
     track = _track_pairs(
-        key[None], _stack([prev_features]), _stack([cur_features]), K, feature_config, pose_config
+        key[None], _stack([prev_features]), _stack([cur_features]), K, feature_config, pose_config, recorder
     )
     return _index(track, 0)
 
@@ -298,6 +310,7 @@ def track_window(
     pose_config: RobustPoseEstimatorConfig,
     start_index: int = 0,
     window_sharding: Optional[NamedSharding] = None,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> Tuple[FeatureSet, TrackResult]:
     """Track a window (B, H, W) of consecutive frames: pair i matches frame
     i-1 (``prev_features`` for i = 0) to frame i.
@@ -315,23 +328,24 @@ def track_window(
     """
     if window_sharding is not None:
         return _track_window_sharded(
-            key, prev_features, frames, K, feature_config, pose_config, int(start_index), window_sharding
+            key, prev_features, frames, K, feature_config, pose_config, int(start_index), window_sharding, recorder
         )
-    feats = _detect_describe(frames, feature_config)
+    with device_span(recorder, "detect", frames.device):
+        feats = _detect_describe(frames, feature_config)
     src = FeatureSet(*(torch.cat([p[None], f[:-1]], dim=0) for p, f in zip(prev_features, feats)))
     ids = int(start_index) + torch.arange(frames.shape[0], device=frames.device)
     keys = prng.fold_in(key.to(frames.device), ids)
-    return feats, _track_pairs(keys, src, feats, K, feature_config, pose_config)
+    return feats, _track_pairs(keys, src, feats, K, feature_config, pose_config, recorder)
 
 
-def _track_window_sharded(key, prev_features, frames, K, feature_config, pose_config, start_index, sharding):
+def _track_window_sharded(key, prev_features, frames, K, feature_config, pose_config, start_index, sharding, recorder):
     mesh = sharding.mesh
     carry = prev_features
     feats_parts, track_parts = [], []
     for (lo, hi), dev in zip(blocks(frames.shape[0], mesh.size, "window"), mesh.devices):
         feats, track = track_window(
             key.to(dev), _to(carry, dev), frames[lo:hi].to(dev), K.to(dev), feature_config, pose_config,
-            start_index=start_index + lo,
+            start_index=start_index + lo, recorder=recorder,
         )
         carry = _index(feats, -1)
         feats_parts.append(feats)
@@ -349,6 +363,7 @@ def track_superwindow(
     pose_config: RobustPoseEstimatorConfig,
     window: int = 16,
     start_index: int = 0,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> Tuple[FeatureSet, TrackResult]:
     """Track S·window frames (S·window, H, W) as S consecutive windows.
 
@@ -360,7 +375,9 @@ def track_superwindow(
     num_windows = frames.shape[0] // window
     chunks = frames.reshape(num_windows, window, *frames.shape[1:])
     starts = [int(start_index) + window * w for w in range(num_windows)]
-    return track_superwindow_chunked(key, prev_features, chunks, K, feature_config, pose_config, starts)
+    return track_superwindow_chunked(
+        key, prev_features, chunks, K, feature_config, pose_config, starts, recorder=recorder
+    )
 
 
 def track_superwindow_chunked(
@@ -372,6 +389,7 @@ def track_superwindow_chunked(
     pose_config: RobustPoseEstimatorConfig,
     starts,
     window_sharding: Optional[NamedSharding] = None,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> Tuple[FeatureSet, TrackResult]:
     """The window loop of :func:`track_superwindow` over pre-chunked windows
     (S, window, H, W), ``starts`` the global frame id of each window's first
@@ -384,7 +402,8 @@ def track_superwindow_chunked(
     prev = prev_features
     for chunk, start in zip(chunks, [int(s) for s in starts]):
         feats, track = track_window(
-            key, prev, chunk, K, feature_config, pose_config, start_index=start, window_sharding=window_sharding
+            key, prev, chunk, K, feature_config, pose_config, start_index=start, window_sharding=window_sharding,
+            recorder=recorder,
         )
         prev = _index(feats, -1)
         tracks.append(track)
@@ -395,11 +414,12 @@ _FEATURE_FETCH_CACHE: "OrderedDict[int, tuple]" = OrderedDict()
 _FEATURE_FETCH_CACHE_CAP = 8
 
 
-def pull_features(track: TrackResult):
+def pull_features(track: TrackResult, recorder: Optional[RunTelemetryRecorder] = None):
     """Numpy (xy, descriptors uint32, valid) of the tracked frame(s).
 
     ONE device-to-host copy per ``features_packed`` buffer (LRU keyed by
-    the tensor's id): every keyframe of a window reads the same copy.
+    the tensor's id): every keyframe of a window reads the same copy. The
+    copy, where it happens, is the span ``keyframe_pull``.
     """
     buf = track.features_packed
     key = id(buf)
@@ -407,7 +427,8 @@ def pull_features(track: TrackResult):
     # The entry holds its buffer: while it lives, its id cannot be reused,
     # and the identity check makes a reused id after eviction harmless.
     if entry is None or entry[0] is not buf:
-        entry = (buf, unpack_features(buf.cpu().numpy()))
+        with timed_event(recorder, "keyframe_pull", metadata={"bytes": buf.numel() * buf.element_size()}):
+            entry = (buf, unpack_features(buf.cpu().numpy()))
         _FEATURE_FETCH_CACHE[key] = entry
         while len(_FEATURE_FETCH_CACHE) > _FEATURE_FETCH_CACHE_CAP:
             _FEATURE_FETCH_CACHE.popitem(last=False)

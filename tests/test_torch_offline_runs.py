@@ -78,4 +78,4 @@ def test_run_visual_slam_persists_the_map_and_the_references_artifacts(offline_r
     snapshot = load_map_snapshot(run / "maps" / "map_snapshot_arrays.npz", run / "maps" / "map_snapshot_metadata.json")
     assert len(snapshot.keyframes) == offline_runs["on"]["keyframes"] >= 20
     names = {e["name"] for e in json.loads((run / "telemetry" / "events.json").read_text())}
-    assert {"track_window", "local_ba", "bow_keyframe", "loop_geometry", "loop_pose_graph"} <= names
+    assert {"track_enqueue", "local_ba", "bow_keyframe", "loop_geometry", "loop_pose_graph"} <= names

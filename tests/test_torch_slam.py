@@ -124,9 +124,37 @@ def _key_shape(x):
     return None
 
 
+# The port's spans are the reference's less ``pose_estimate``, with
+# ``track_window`` named ``track_enqueue``, and those it adds; its events
+# carry their links besides.
+RENAMED_SPANS = {"track_window": "track_enqueue"}
+DROPPED_SPANS = {"pose_estimate"}
+ADDED_SPANS = {"run_sequence", "dispatch_stage", "scalar_pull", "keyframe_pull"}
+LINKS = {"span_id", "parent_id", "thread"}
+
+
+def _assert_telemetry_as_reference(name, a, b):
+    """``a``, the reference's telemetry file ``name``, against ``b``, the port's."""
+    if name == "reports/telemetry_summary.json":
+        assert set(b["stages"]) - ADDED_SPANS == {RENAMED_SPANS.get(s, s) for s in a["stages"]} - DROPPED_SPANS
+        assert "run_sequence" in b["stages"]
+        shapes = [{json.dumps(_key_shape(v), sort_keys=True) for v in x["stages"].values()} for x in (a, b)]
+        assert shapes[1] == shapes[0] and set(b) == set(a)
+        return
+    ref_names = {e["name"] for e in a}
+    assert {e["name"] for e in b} - ADDED_SPANS == {RENAMED_SPANS.get(n, n) for n in ref_names} - DROPPED_SPANS
+    keys = {k for e in a for k in e}
+    assert all(set(e) == keys | LINKS for e in b)
+    for n in ref_names - set(RENAMED_SPANS) - DROPPED_SPANS:
+        assert _key_shape([e["metadata"] for e in b if e["name"] == n]) == _key_shape(
+            [e["metadata"] for e in a if e["name"] == n]
+        ), n
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_artifacts_equal_reference(runs, mode):
-    """Same files, same JSON keys, same determinism payloads."""
+    """Same files, same JSON keys (the telemetry's spans as the port names
+    them), same determinism payloads."""
     (_, _, jres), (_, _, tres) = runs[mode]
     jfiles = sorted(str(p.relative_to(jres.run_dir)) for p in jres.run_dir.rglob("*"))
     tfiles = sorted(str(p.relative_to(tres.run_dir)) for p in tres.run_dir.rglob("*"))
@@ -135,6 +163,9 @@ def test_artifacts_equal_reference(runs, mode):
         if name.endswith(".json"):
             a = json.loads((jres.run_dir / name).read_text())
             b = json.loads((tres.run_dir / name).read_text())
+            if name in ("reports/telemetry_summary.json", "telemetry/events.json"):
+                _assert_telemetry_as_reference(name, a, b)
+                continue
             assert _key_shape(b) == _key_shape(a), name
             if isinstance(a, dict) and "determinism" in a:
                 assert b["determinism"] == a["determinism"] == {"seed": 3, "config_hash": ""}, name
