@@ -90,8 +90,8 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) ->
     bits = random_bits32(k, shape)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=k.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -309,6 +309,16 @@ def symmetric_transfer_error(
     return (fwd * fwd).sum(dim=-1) + (bwd * bwd).sum(dim=-1)
 
 
+def _sign_pairs(dtype, device) -> torch.Tensor:
+    """(4, 2): the rows (+1, +1), (+1, -1), (-1, +1), (-1, -1), made by
+    fills on ``device`` (no host-to-device copy, so a CUDA graph can
+    capture it)."""
+    signs = torch.ones((4, 2), dtype=dtype, device=device)
+    signs[2:, 0] = -1.0
+    signs[1::2, 1] = -1.0
+    return signs
+
+
 def decompose_homography(
     H: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -328,7 +338,7 @@ def decompose_homography(
     x3 = torch.sqrt(((d2 * d2 - d3 * d3) / denom).clamp(0.0, 1.0))
     d2_safe = d2.clamp_min(1e-12)
 
-    signs = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, 1.0], [-1.0, -1.0]], dtype=H.dtype, device=H.device)
+    signs = _sign_pairs(H.dtype, H.device)
     e1, e3 = signs[:, 0], signs[:, 1]  # (4,)
     d1_, d3_, x1_, x3_, d2s = (v[..., None] for v in (d1, d3, x1, x3, d2_safe))  # (..., 1)
     s_theta = (d1_ - d3_) * (e1 * x1_) * (e3 * x3_) / d2s  # (..., 4)

@@ -60,7 +60,7 @@ def match_descriptors(
     config: MatchConfig = MatchConfig(),
 ) -> MatchResult:
     """Brute-force Hamming matching with cross-check and/or Lowe ratio."""
-    big = torch.tensor(_BIG, dtype=torch.float32, device=desc1.device)
+    big = torch.full((), _BIG, dtype=torch.float32, device=desc1.device)
     d = hamming_distance_matrix(desc1, desc2)
     d = torch.where(valid2[..., None, :], d, big)
     d = torch.where(valid1[..., :, None], d, big)
@@ -140,7 +140,7 @@ class SelectedMatches(NamedTuple):
 def select_matches(result: MatchResult, max_matches: int = 512) -> SelectedMatches:
     """Compact per-query matches to the best ``max_matches`` by distance
     (stable: equal distances keep query order)."""
-    big = torch.tensor(_BIG, dtype=torch.float32, device=result.distances.device)
+    big = torch.full((), _BIG, dtype=torch.float32, device=result.distances.device)
     masked = torch.where(result.valid, result.distances, big)
     k = min(max_matches, masked.shape[-1])
     dist, rows = torch.sort(masked, dim=-1, stable=True)

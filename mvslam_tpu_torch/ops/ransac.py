@@ -109,7 +109,10 @@ def _gather_points(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _as_threshold_sq(threshold, like: torch.Tensor) -> torch.Tensor:
-    t = torch.as_tensor(threshold, dtype=like.dtype, device=like.device)
+    if isinstance(threshold, (int, float)):  # a fill, not a host-to-device copy: capturable in a CUDA graph
+        t = torch.full((), threshold, dtype=like.dtype, device=like.device)
+    else:
+        t = torch.as_tensor(threshold, dtype=like.dtype, device=like.device)
     return t * t
 
 

@@ -24,6 +24,7 @@ the CPU builds that library when it starts.
 from __future__ import annotations
 
 import logging
+from contextlib import ExitStack
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence
@@ -62,6 +63,7 @@ from mvslam_tpu_torch.loopclosure.persistent_map import (
 from mvslam_tpu_torch.ops.hamming import matcher_for
 from mvslam_tpu_torch.runtime.frame_stream import FramePacket
 from mvslam_tpu_torch.slam.tracking import (
+    PAIR_GRAPHS,
     bootstrap_frame,
     frame_to_gray,
     match_and_estimate,
@@ -743,6 +745,9 @@ class SLAMSystem:
             # BEFORE any frame enters the pending buffer: the first build
             # takes seconds and would otherwise tick against every queued
             # frame's TTL, expiring the stream as ``deadline_expired``.
+            # match+pose here captures the stream's graphs (the plane pads
+            # every frame to ``num_features``, as the bootstrap frame is),
+            # while no other thread launches on the device.
             feature_plane.warmup(frame)
             fs = bootstrap_frame(torch.from_numpy(np.array(frame)).to(self.device), self.config.feature)
             match_and_estimate(self._track_key, fs, fs, self._K_dev, self.config.feature, self.config.pose)
@@ -752,7 +757,7 @@ class SLAMSystem:
         warmed = False
         packets, end = iter(packets), object()
         try:
-            with timed_event(self.telemetry, "run_stream_async"):
+            with timed_event(self.telemetry, "run_stream_async"), ExitStack() as after_warm:
                 while True:
                     with timed_event(self.telemetry, "input_wait") as meta:
                         packet = next(packets, end)
@@ -764,6 +769,9 @@ class SLAMSystem:
                     if not warmed:
                         warm(frame)
                         warmed = True
+                        # From here on the feature plane launches on the
+                        # device from its own thread: no call captures.
+                        after_warm.enter_context(PAIR_GRAPHS.captures_closed())
                     frame_id = self._frame_count
                     self._frame_count += 1
                     control_plane.submit_frame(frame_id, packet.timestamp, frame)

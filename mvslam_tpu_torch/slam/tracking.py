@@ -20,6 +20,8 @@ Given a ``recorder``, the feature-matching steps time their three stages
 on the device (``core.telemetry.device_span``): ``detect`` (K1, K2,
 BRIEF), ``match`` (matching, selection, gathering the matched points) and
 ``pose`` (the pose stage through the packed outputs), once per window.
+On a CUDA device the match and pose stages replay as captured CUDA graphs
+(``slam.pair_graphs``), each inside its span.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from mvslam_tpu_torch.ops.hamming import (
 )
 from mvslam_tpu_torch.ops.image import rgb_to_gray
 from mvslam_tpu_torch.ops.lk import LKConfig, lk_track
+from mvslam_tpu_torch.slam.pair_graphs import PairGraphs
 
 _SCALAR_FIELDS = (
     "use_essential",
@@ -161,6 +164,37 @@ def bootstrap_frame(frame: torch.Tensor, feature_config: FeaturePipelineConfig) 
 frame_to_gray = rgb_to_gray  # (H, W[, 3]) frame → the flow path's (H, W) float32 image
 
 
+def _match_stage(f1: FeatureSet, f2: FeatureSet, match_cfg: MatchConfig, max_matches: int):
+    """Match f1 → f2 and gather the matched points: (selected, p1, p2)."""
+    result = match_descriptors(f1.descriptors, f1.valid, f2.descriptors, f2.valid, match_cfg)
+    selected = select_matches(result, max_matches=max_matches)
+    p1, p2 = gather_matched_points(f1.xy, f2.xy, selected)
+    return selected, p1, p2
+
+
+def _pose_stage(keys, f2: FeatureSet, K, matched, pose_config: RobustPoseEstimatorConfig) -> TrackResult:
+    """Each pair's pose from the match stage's output, through the packed
+    outputs."""
+    selected, p1, p2 = matched
+    pose = estimate_pose_device(keys, p1, p2, selected.valid, K, pose_config)
+    num_features = f2.valid.sum(dim=-1).to(torch.int32)
+    return TrackResult(
+        pose=pose,
+        matched_p1=p1,
+        matched_p2=p2,
+        match_mask=selected.valid,
+        match_distances=selected.distances,
+        num_matches=selected.num_valid,
+        num_features=num_features,
+        scalars_packed=_pack_values(pose, selected.num_valid, num_features),
+        features_packed=_pack_features(f2),
+    )
+
+
+# Every CUDA caller's two stages as captured graphs (``pair_graphs``).
+PAIR_GRAPHS = PairGraphs(_match_stage, _pose_stage)
+
+
 def _track_pairs(
     keys: torch.Tensor,
     f1: FeatureSet,
@@ -170,26 +204,22 @@ def _track_pairs(
     pose_config: RobustPoseEstimatorConfig,
     recorder: Optional[RunTelemetryRecorder] = None,
 ) -> TrackResult:
-    """Match f1 → f2 and estimate each pair's pose (batched over pairs)."""
+    """Match f1 → f2 and estimate each pair's pose (batched over pairs).
+
+    On a CUDA device both stages replay as captured graphs
+    (``PAIR_GRAPHS``), bit-equal to the eager stages; those run on the
+    CPU, and on CUDA for a signature first seen where no capture may run
+    (``PairGraphs.captures_closed``)."""
     _, _, match_cfg = _configs(feature_config)
+    match_args = (match_cfg, feature_config.max_matches)
+    if keys.device.type == "cuda":
+        track = PAIR_GRAPHS.track(keys, f1, f2, K, match_args, pose_config, recorder)
+        if track is not None:
+            return track
     with device_span(recorder, "match", keys.device):
-        result = match_descriptors(f1.descriptors, f1.valid, f2.descriptors, f2.valid, match_cfg)
-        selected = select_matches(result, max_matches=feature_config.max_matches)
-        p1, p2 = gather_matched_points(f1.xy, f2.xy, selected)
+        matched = _match_stage(f1, f2, *match_args)
     with device_span(recorder, "pose", keys.device):
-        pose = estimate_pose_device(keys, p1, p2, selected.valid, K, pose_config)
-        num_features = f2.valid.sum(dim=-1).to(torch.int32)
-        return TrackResult(
-            pose=pose,
-            matched_p1=p1,
-            matched_p2=p2,
-            match_mask=selected.valid,
-            match_distances=selected.distances,
-            num_matches=selected.num_valid,
-            num_features=num_features,
-            scalars_packed=_pack_values(pose, selected.num_valid, num_features),
-            features_packed=_pack_features(f2),
-        )
+        return _pose_stage(keys, f2, K, matched, pose_config)
 
 
 def track_frame(

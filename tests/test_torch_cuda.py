@@ -791,3 +791,154 @@ def test_meshed_superwindow_on_the_card_equals_unsharded(cuda):
         assert torch.equal(got.scalars_packed[..., 12:13], ref.scalars_packed[..., 12:13])
         assert torch.equal(got.scalars_packed[..., 23:25], ref.scalars_packed[..., 23:25])
         assert float((got.scalars_packed[..., :12] - ref.scalars_packed[..., :12]).abs().max()) < 1e-3
+
+
+def _pair_inputs(cuda, batch, num_features):
+    """``batch`` consecutive bench-frame pairs at (370, 1226): per-pair keys,
+    source and target feature sets (views of one detection, as a window's
+    are), K, and the feature config with ``num_features`` and 512 matches."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig, FeatureSet
+    from mvslam_tpu_torch.slam import tracking
+
+    fc = FeaturePipelineConfig(num_features=num_features, max_matches=512)
+    frames = torch.from_numpy(np.stack([f.astype(np.uint8) for f in make_frames(batch + 1)])).to(cuda)
+    feats = tracking._detect_describe(frames, fc)
+    f1 = FeatureSet(*(a[:-1] for a in feats))
+    f2 = FeatureSet(*(a[1:] for a in feats))
+    keys = prng.fold_in(prng.key(7, cuda), torch.arange(1, batch + 1, device=cuda))
+    K = torch.tensor([[718.856, 0.0, 607.19], [0.0, 718.856, 185.22], [0.0, 0.0, 1.0]], device=cuda)
+    return keys, f1, f2, K, fc
+
+
+def _kitti_pose_config():
+    import json
+    from pathlib import Path
+
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+
+    path = Path(__file__).resolve().parents[1] / "configs" / "pipeline" / "kitti_default.json"
+    return RobustPoseEstimatorConfig(**json.loads(path.read_text())["pose"])
+
+
+def _assert_tracks_equal(got, want):
+    from mvslam_tpu_torch.slam.pair_graphs import _flatten
+
+    for name, a, b in zip(_leaf_names(want), _flatten(got), _flatten(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+def _bits(x):
+    """A tensor's bits, comparable with ``torch.equal`` (``features_packed``
+    carries descriptor words in float32 lanes, some of them NaN patterns)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _leaf_names(track):
+    return [f"pose.{f}" for f in track.pose._fields] + list(track._fields[1:])
+
+
+@pytest.mark.parametrize("cell,batch,num_features", [("kitti.track", 16, 2048), ("tum.live", 1, 1000)])
+def test_pair_graph_replay_equals_the_eager_stages(cuda, cell, batch, num_features):
+    """At each cell's signature (``kitti.track``: 16 pairs of 2,048
+    features, 512 matches, the ``kitti_default`` pose config; ``tum.live``:
+    one pair of 1,000): a fresh cache captures, and its replays equal the
+    eager stages in every ``TrackResult`` leaf, bit for bit; an earlier
+    result stays as it was after later replays with other inputs; a second
+    signature captures a second entry; the spans are one
+    ``pair_graph_capture`` per capture, with its signature, and one
+    ``pair_graph_replay`` per call, each around a ``match.device`` and a
+    ``pose.device`` span."""
+    from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeatureSet
+    from mvslam_tpu_torch.slam import tracking
+    from mvslam_tpu_torch.slam.pair_graphs import PairGraphs, _flatten
+
+    keys, f1, f2, K, fc = _pair_inputs(cuda, batch, num_features)
+    pc = _kitti_pose_config()
+    match_args = (tracking._configs(fc)[2], fc.max_matches)
+    eager = tracking._pose_stage(keys, f2, K, tracking._match_stage(f1, f2, *match_args), pc)
+    graphs = PairGraphs(tracking._match_stage, tracking._pose_stage)
+    recorder = RunTelemetryRecorder()
+    first = graphs.track(keys, f1, f2, K, match_args, pc, recorder)
+    torch.cuda.synchronize()
+    _assert_tracks_equal(first, eager)
+    kept = [leaf.clone() for leaf in _flatten(first)]
+
+    # Other inputs at the same signature: the pairs in reverse order.
+    flip = torch.arange(batch - 1, -1, -1, device=cuda)
+    g1, g2 = (FeatureSet(*(a[flip] for a in f)) for f in (f1, f2))
+    eager_flipped = tracking._pose_stage(keys[flip], g2, K, tracking._match_stage(g1, g2, *match_args), pc)
+    again = graphs.track(keys[flip], g1, g2, K, match_args, pc, recorder)
+    torch.cuda.synchronize()
+    _assert_tracks_equal(again, eager_flipped)
+    for a, b in zip(_flatten(first), kept):
+        assert torch.equal(_bits(a), _bits(b))
+    assert len(graphs.entries(cuda)) == 1
+
+    # A second signature (other feature count) captures a second entry.
+    half = num_features // 2
+    h1, h2 = (FeatureSet(*(a[:, :half] if a.ndim > 1 else a for a in f)) for f in (f1, f2))
+    eager_half = tracking._pose_stage(keys, h2, K, tracking._match_stage(h1, h2, *match_args), pc)
+    _assert_tracks_equal(graphs.track(keys, h1, h2, K, match_args, pc, recorder), eager_half)
+    assert len(graphs.entries(cuda)) == 2
+
+    events = recorder.events()
+    captures = [e for e in events if e.name == "pair_graph_capture"]
+    replays = [e for e in events if e.name == "pair_graph_replay"]
+    assert len(captures) == 2 and len(replays) == 3
+    assert captures[0].metadata["inputs"][0] == [[batch, 2], "int64"]
+    assert captures[0].metadata["inputs"][1] == [[batch, num_features, 2], "float32"]
+    assert captures[1].metadata["inputs"][1] == [[batch, half, 2], "float32"]
+    for replay in replays:
+        inside = sorted(e.name for e in events if e.parent_id == replay.span_id)
+        assert inside == ["match.device", "pose.device"]
+
+
+def test_superwindow_and_run_sequence_replay_as_eager(cuda, tmp_path, monkeypatch):
+    """A six-window ``track_superwindow`` (1 + 96 bench frames, 2,048
+    features, 512 matches) and two consecutive 96-frame dispatches of
+    ``run_sequence`` give with the graphs what the eager stages give, in
+    every leaf and every diagnostic; every window replays (one capture)."""
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.slam import tracking
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    host = [f.astype(np.uint8) for f in make_frames(193)]
+    frames = torch.from_numpy(np.stack(host[:97])).to(cuda)
+    fc = FeaturePipelineConfig(num_features=2048, max_matches=512)
+    pc = _kitti_pose_config()
+    K = torch.tensor([[718.856, 0.0, 607.19], [0.0, 718.856, 185.22], [0.0, 0.0, 1.0]], device=cuda)
+    key = prng.key(3, cuda)
+    prev = tracking.bootstrap_frame(frames[0], fc)
+
+    def runs():
+        last, track = tracking.track_superwindow(key, prev, frames[1:], K, fc, pc, window=16, start_index=1)
+        torch.cuda.synchronize()
+        cfg = SLAMSystemConfig(
+            output_root=tmp_path, feature=fc, pose=pc,
+            enable_local_ba=False, enable_relocalization=False, persist_map_snapshot=False,
+        )
+        system = SLAMSystem(cfg, device=cuda)
+        diags = system.run_sequence(host[:97], window=16, windows_per_dispatch=6)
+        diags += system.run_sequence(host[97:], [97.0 + i for i in range(96)], window=16, windows_per_dispatch=6)
+        strip = lambda d: {k: v for k, v in d.to_dict().items() if k != "correlation_id"}  # noqa: E731
+        return last, track, np.stack(system.trajectory.poses), [strip(d) for d in diags], system.telemetry.events()
+
+    last, graphed, poses, diags, events = runs()
+    names = [e.name for e in events]
+    assert names.count("pair_graph_replay") == names.count("pose.device") == 2 * 6
+    with monkeypatch.context() as m:
+        m.setattr(tracking.PAIR_GRAPHS, "track", lambda *args: None)  # the eager stages
+        last_e, eager, poses_e, diags_e, events_e = runs()
+    assert "pair_graph_replay" not in [e.name for e in events_e]
+    for a, b in zip(last, last_e):
+        assert torch.equal(a, b)
+    _assert_tracks_equal(graphed, eager)
+    assert np.array_equal(poses, poses_e)
+    assert diags == diags_e
+    assert sum(d["pose_success"] for d in diags) >= 180
