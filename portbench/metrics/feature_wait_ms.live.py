@@ -1,5 +1,6 @@
-"""Mean feature latency of the feature control plane (a frame's wait plus
-its batched extraction), in ms, from the window's report."""
+"""Mean feature latency of the feature control plane, in ms, from the
+window's report: the plane's ``latency``, a batch's extraction wall
+alone, without the wait before the batch starts."""
 
 
 def read(ctx):

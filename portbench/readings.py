@@ -8,15 +8,15 @@ the cell's own load.
 One JSON line per seed on standard output (also appended, with the
 judge's per-anchor record, to ``chiprun_out/readings.jsonl``); the largest
 reading of each number over the program's seeds and the smallest over the
-control's at the end. ``--numbers`` names the numbers judged (by default
-every number the judge has, whichever the cell limits).
+control's at the end, for every number judged: by default those the cell
+limits, core numbers and ``checks/<number>.py`` alike; ``--numbers``
+names others.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import sys
 from pathlib import Path
 
@@ -24,7 +24,6 @@ if __package__ in (None, ""):
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from portbench import run, spec  # noqa: E402
-from portbench.reference.judge import NUMBERS  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -34,30 +33,31 @@ def main(argv=None) -> int:
     parser.add_argument("--control-seeds", type=int, default=3, help="judge the control on the first N seeds")
     parser.add_argument("--seconds", type=float, default=6.0)
     parser.add_argument("--out", default="chiprun_out/readings.jsonl")
-    parser.add_argument("--numbers", default=",".join(NUMBERS), help="comma-separated")
+    parser.add_argument("--numbers", help="comma-separated (by default the cell's limits)")
     args = parser.parse_args(argv)
     run.set_cache_dirs()
     seeds = [int(s) for s in args.seeds.split(",")]
-    wanted = tuple(args.numbers.split(","))
-    program, control = {k: [] for k in wanted}, {k: [] for k in wanted}
+    wanted = tuple(args.numbers.split(",")) if args.numbers else None
+    program, control = {}, {}
     out = spec.ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     for i, seed in enumerate(seeds):
         res = run.run_cell(args.workload, seed, args.seconds, False, control=i < args.control_seeds, wanted=wanted)
+        names = [k for k in res["judge"] if k not in ("frames_checked", "anchors")]
         line = {
             "workload": args.workload,
             "seed": seed,
             "correct": res["correct"],
             "attempted": res["attempted"],
             "failed": res["failed"],
-            "program": {k: res["judge"][k] for k in wanted},
+            "program": {k: res["judge"][k] for k in names},
             "control": res.get("control_checks"),
             "judge": res["judge"],
         }
-        for k in wanted:
-            program[k].append(line["program"].get(k, math.nan))
+        for k in names:
+            program.setdefault(k, []).append(line["program"][k])
             if line["control"]:
-                control[k].append(line["control"][k])
+                control.setdefault(k, []).append(line["control"][k])
         text = json.dumps(line, default=str)
         print(text, flush=True)
         with open(out, "a") as f:

@@ -29,7 +29,9 @@ them), with the ones it was matched against:
   from the frame's relative pose than from the reference's, as a share.
 
 A cell's file names the numbers it compares and their limits; the judge
-computes those. A candidate is what is judged: the program's outputs
+computes those of ``NUMBERS``, and any other is a file of its own,
+``checks/<number>.py`` (``spec.check``), that ``run.run_cell`` calls
+beside it. A candidate is what is judged: the program's outputs
 (``ProgramAnswers``) or the reference itself in a lower precision
 (``ControlAnswers``). The judge imports nothing of the program.
 """

@@ -8,7 +8,9 @@ drives the system for ``--seconds``. With ``--trace 1`` a stretch of the
 window runs under the device profiler and the per-layer metrics are
 printed in place of the end-to-end ones. After the window the judge
 (``reference/``) compares a sample of the program's answers with the
-plain reference. The last line of standard output is the result as JSON;
+plain reference: the core numbers in ``reference/judge.py``, any other
+number the cell limits in ``checks/<number>.py``. The last line of
+standard output is the result as JSON;
 the judged numbers and their limits are the last lines of standard error.
 """
 
@@ -67,22 +69,27 @@ def device_info(device) -> dict:
     }
 
 
-def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", control: bool = False, overrides=None, wanted=None) -> dict:
-    """One run of cell ``name``; returns the result with its judged numbers
-    (``checks``). ``control`` also judges the reference in a lower
-    precision in the program's place, on the same sample
-    (``control_checks``); ``overrides`` updates parts of the cell's files
-    (a test's smaller size, a sweep's rate); ``wanted`` names the numbers
-    the judge computes (by default those the cell limits)."""
+def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", control: bool = False, overrides=None, wanted=None, root=spec.ROOT) -> dict:
+    """One run of cell ``name`` of the checkout at ``root``; returns the
+    result with its judged numbers (``checks``). ``control`` also judges
+    the reference in a lower precision in the program's place, on the same
+    sample (``control_checks``); ``overrides`` updates parts of the cell's
+    files (a test's smaller size, a sweep's rate); ``wanted`` names the
+    numbers judged (by default those the cell limits): the core numbers by
+    ``Judge.judge``, every other by its file ``checks/<number>.py``."""
     import torch
 
     from portbench import scene
-    from portbench.reference.judge import ControlAnswers, Judge, verdict
+    from portbench.reference.judge import NUMBERS, ControlAnswers, Judge, verdict
     from portbench.trace import DeviceTracer, breakdown
 
-    cell = spec.find(name)
+    cell = spec.find(name, root)
     for key, value in (overrides or {}).items():
         getattr(cell, key).update(value)
+    limits = cell.cell["limits"]
+    wanted = tuple(limits) if wanted is None else tuple(wanted)
+    core = tuple(k for k in wanted if k in NUMBERS)
+    checks = {k: spec.check(k, root) for k in wanted if k not in NUMBERS}
     device = torch.device(device)
     if device.type == "cuda":
         device = torch.device("cuda", 0)
@@ -90,15 +97,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", c
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats(device)
-    out_root = Path(tempfile.gettempdir()) / "portbench_runs" / name
-    shutil.rmtree(out_root, ignore_errors=True)
+    # The program's run directory, of this process alone (two runs side by
+    # side, as in a parallel test session, never share one).
+    out_root = Path(tempfile.mkdtemp(prefix=f"portbench_{name}_"))
     try:
         import mvslam_tpu_torch  # noqa: F401  (set-up: the program loads)
 
         rendered = scene.render(cell.config, seed, device)
         print(f"scene: {len(rendered.frames)} frames rendered in {rendered.seconds:.3f} s", file=sys.stderr)
         host_frames = rendered.frames.cpu().numpy()
-        driver = spec.driver(cell.traffic["entry"])(
+        driver = spec.driver(cell.traffic["entry"], root)(
             name, cell.config, cell.traffic, cell.cell, host_frames, device, seed, out_root
         )
         driver.setup()
@@ -126,10 +134,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", c
         bad = forbidden_modules()
         judge_cfg = cell.traffic["judge"]
         judge = Judge(cell.config, rendered.frames, rendered.intrinsics, seed, device, judge_cfg["sample"], judge_cfg["keep"])
-        limits = cell.cell["limits"]
-        wanted = tuple(limits) if wanted is None else tuple(wanted)
         anchors = judge.anchors(answers)
-        numbers = judge.judge(answers, anchors, wanted)
+        numbers = judge.judge(answers, anchors, core)
+        check_ctx = {"answers": answers, "extra": extra, "judge": judge, "anchors": anchors, "cell": cell}
+        numbers.update({k: float(c.judge(check_ctx)) for k, c in checks.items()})
         correct = verdict(numbers, limits) and not bad
 
         result = {
@@ -163,7 +171,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", c
         if bad:
             result["checks"]["forbidden_modules"] = {"value": len(bad), "limit": 0}
         if control:
-            result["control_checks"] = judge.judge(ControlAnswers(judge), anchors, wanted)
+            result["control_checks"] = judge.judge(ControlAnswers(judge), anchors, core)
+            result["control_checks"].update({k: float(c.control(check_ctx)) for k, c in checks.items()})
         result["forbidden"] = bad
         result["window"] = {k: v for k, v in window.items() if k != "metrics"}
         result["judge"] = {k: numbers[k] for k in ("frames_checked", "anchors", *wanted)}
@@ -197,8 +206,8 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = parser.parse_args(argv)
 
-    cell = spec.find(args.workload)
     set_cache_dirs()
+    cell = spec.find(args.workload)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

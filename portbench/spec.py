@@ -12,10 +12,17 @@ own under this folder, found by the name the entry gives:
   the program (``drive.py`` has what drivers share);
 - ``cells/<cell>.json``: what belongs to one cell (a live rate, the
   judge's sample and its limits);
-- ``metrics/<metric>.py``: the reader of one per-layer metric.
+- ``metrics/<metric>.py``: the reader of one per-layer metric;
+- ``checks/<number>.py``: a judged number that is not one of the core
+  ``reference/judge.py::NUMBERS``, named by a key of a cell's
+  ``limits``: ``judge(ctx)`` gives the program's number, ``control(ctx)``
+  the same comparison with the reference in bfloat16 in the program's
+  place.
 
-A later cell, configuration, traffic mix or metric is new files and new
-entries; no file here needs an edit.
+A later cell, configuration, traffic mix, metric or judged number is new
+files and new entries. The one edit to an entry already there: a new
+cell's name appended to the ``workloads`` list of each metric it reports
+(such as ``tracked_fps``).
 """
 
 from __future__ import annotations
@@ -59,7 +66,11 @@ def _reports(metric: dict, cell: str) -> bool:
 
 
 def find(name: str, root: Path = ROOT) -> Cell:
-    """The cell ``name`` of ``BENCHMARK.json`` with its files."""
+    """The cell ``name`` of ``BENCHMARK.json`` with its files; raises
+    before any set-up if a limit names neither a core number of the judge
+    nor a file ``checks/<number>.py``."""
+    from portbench.reference.judge import NUMBERS
+
     bench = benchmark(root)
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
@@ -68,11 +79,15 @@ def find(name: str, root: Path = ROOT) -> Cell:
     e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
     moved = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _reports(m, name) and m["moves"] in moved]
+    cell = load_json(root / HERE.name / "cells" / f"{name}.json")
+    unknown = [k for k in cell["limits"] if k not in NUMBERS and not (root / HERE.name / "checks" / f"{k}.py").is_file()]
+    if unknown:
+        raise KeyError(f"cell {name!r} limits {unknown}: neither a core number of reference/judge.py nor a file checks/<number>.py")
     return Cell(
         name=name,
         config=load_json(root / config_entry["file"]),
         traffic=load_json(root / HERE.name / "traffic" / f"{entry['traffic']}.json"),
-        cell=load_json(root / HERE.name / "cells" / f"{name}.json"),
+        cell=cell,
         chips=int(entry["chips"]),
         end_to_end=e2e,
         per_layer=per_layer,
@@ -101,8 +116,16 @@ def driver(entry: str, root: Path = ROOT):
     return _load("entries", entry, root).Driver
 
 
-def names_ok(bench: dict) -> Dict[str, str]:
-    """Every name and unit of ``bench`` that breaks the character rules."""
+def check(number: str, root: Path = ROOT):
+    """The module of ``checks/<number>.py``, with ``judge(ctx)`` and
+    ``control(ctx)``."""
+    return _load("checks", number, root)
+
+
+def names_ok(bench: dict, root: Path = ROOT) -> Dict[str, str]:
+    """Every name and unit of ``bench``, and every judged number that a
+    cell's file limits or a file under ``checks/`` holds, that breaks the
+    character rules."""
     bad = {}
     for key in ("configs", "workloads", "end_to_end", "per_layer"):
         for item in bench[key]:
@@ -118,4 +141,10 @@ def names_ok(bench: dict) -> Dict[str, str]:
         for k in c["reduced"]:
             if not NAME.match(k):
                 bad[k] = "reduced"
+    numbers = [p.stem for p in (root / HERE.name / "checks").glob("*.py")]
+    for w in bench["workloads"]:
+        numbers += list(load_json(root / HERE.name / "cells" / f"{w['name']}.json")["limits"])
+    for k in numbers:
+        if not NAME.match(k):
+            bad[k] = "check"
     return bad
