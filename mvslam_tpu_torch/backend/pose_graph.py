@@ -62,6 +62,10 @@ class PoseGraphBase:
     def __len__(self) -> int:
         return len(self._params)
 
+    @property
+    def num_edges(self) -> int:
+        return len(self._odometry) + len(self._loops)
+
     def add_pose(self, delta: np.ndarray, weight: float = 1.0) -> int:
         """Compose the last pose with an odometry delta and add a between edge."""
         delta = np.asarray(delta, dtype=np.float64).reshape(self.model.dim)
@@ -92,7 +96,7 @@ class PoseGraphBase:
         return PoseGraphSnapshot(
             model=self.model_name,
             num_poses=len(self._params),
-            num_edges=len(self._odometry) + len(self._loops),
+            num_edges=self.num_edges,
             digest=self._build_graph().digest(),
         )
 

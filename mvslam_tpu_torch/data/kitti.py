@@ -113,13 +113,17 @@ class KittiSequence:
             for i in range(n)
         ]
 
-    def iter_frames(self, max_frames: Optional[int] = None, buffer_size: int = 8) -> Iterator[FramePacket]:
-        """Stream frames via the background loader. Parity: ``kitti_dataset.py:194-200``."""
+    def iter_frames(
+        self, max_frames: Optional[int] = None, buffer_size: int = 8, recorder=None
+    ) -> Iterator[FramePacket]:
+        """Stream frames via the background loader (``recorder``: its
+        ``frame_decode`` spans). Parity: ``kitti_dataset.py:194-200``."""
         entries = self.frame_entries(max_frames)
         stream = FrameStream(
             [e.path for e in entries],
             timestamps=[e.timestamp for e in entries],
             buffer_size=buffer_size,
+            recorder=recorder,
         )
         yield from stream
 
@@ -312,13 +316,13 @@ class KittiRawSession:
         return load_oxts_positions(self.oxts_dir)
 
     def iter_frames(
-        self, max_frames: Optional[int] = None, buffer_size: int = 8
+        self, max_frames: Optional[int] = None, buffer_size: int = 8, recorder=None
     ) -> Iterator[FramePacket]:
         paths = self.image_paths()
         if max_frames is not None:
             paths = paths[:max_frames]
         stream = FrameStream(
-            paths, timestamps=[0.1 * i for i in range(len(paths))], buffer_size=buffer_size
+            paths, timestamps=[0.1 * i for i in range(len(paths))], buffer_size=buffer_size, recorder=recorder
         )
         yield from stream
 

@@ -95,12 +95,15 @@ class TumSequence:
         fx, fy, cx, cy = FREIBURG1_INTRINSICS
         return np.asarray([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
 
-    def iter_frames(self, max_frames: Optional[int] = None, buffer_size: int = 8) -> Iterator[FramePacket]:
+    def iter_frames(
+        self, max_frames: Optional[int] = None, buffer_size: int = 8, recorder=None
+    ) -> Iterator[FramePacket]:
         entries = self.entries[:max_frames] if max_frames else self.entries
         stream = FrameStream(
             [e.path for e in entries],
             timestamps=[e.timestamp for e in entries],
             buffer_size=buffer_size,
+            recorder=recorder,
         )
         yield from stream
 

@@ -6,7 +6,9 @@ ring buffer; the consumer iterates :class:`FramePacket`s in order;
 backpressure drops the oldest buffered frame and counts it.
 
 This is host-side I/O; the windowed device-batch engine
-(``slam.api.SLAMSystem._run_windowed``) consumes it.
+(``slam.api.SLAMSystem._run_windowed``) consumes it. Given a telemetry
+``recorder``, the loader records each read as a ``frame_decode`` span on
+its thread (``frame-loader``), with the file's index.
 
 Port of ``mvslam_tpu/runtime/frame_stream.py``. The JAX package's default
 reader decodes with its C++ library, then cv2, then Pillow. The port's
@@ -39,6 +41,8 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder, timed_event
+
 
 @dataclass(frozen=True)
 class FramePacket:
@@ -70,8 +74,12 @@ class FrameStreamStats:
         }
 
 
+_STOP_RECHECK_S = 0.05  # how often a full buffer's ``put`` looks at its stop event
+
+
 class BoundedRingBuffer:
-    """Thread-safe bounded buffer; push drops the oldest when full.
+    """Thread-safe bounded buffer; push drops the oldest when full, put
+    waits for room.
 
     Parity: ``frame_stream.py:61-111``.
     """
@@ -83,6 +91,7 @@ class BoundedRingBuffer:
         self._items: deque = deque()
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
+        self._not_full = threading.Condition(self._lock)
         self.dropped = 0
 
     def push(self, item: Any) -> bool:
@@ -97,12 +106,25 @@ class BoundedRingBuffer:
             self._not_empty.notify()
             return clean
 
+    def put(self, item: Any, stop: threading.Event) -> bool:
+        """Append ``item``, asleep while the buffer is full; False, without
+        appending, once ``stop`` is set (looked at every ``_STOP_RECHECK_S``)."""
+        with self._not_full:
+            while len(self._items) >= self.capacity and not stop.is_set():
+                self._not_full.wait(_STOP_RECHECK_S)
+            if stop.is_set():
+                return False
+            self._items.append(item)
+            self._not_empty.notify()
+            return True
+
     def pop(self, timeout: Optional[float] = None) -> Optional[Any]:
         with self._not_empty:
             if not self._items:
                 self._not_empty.wait(timeout)
             if not self._items:
                 return None
+            self._not_full.notify()
             return self._items.popleft()
 
     def __len__(self) -> int:
@@ -412,7 +434,8 @@ class FrameStream:
 
     Parity: ``frame_stream.py:123-211``. ``read_fn`` is injectable for
     tests/benchmarks (synthetic frames without disk I/O); the default is
-    :func:`_default_read_fn`.
+    :func:`_default_read_fn`. ``recorder`` takes a ``frame_decode`` span
+    per read.
     """
 
     def __init__(
@@ -422,6 +445,7 @@ class FrameStream:
         buffer_size: int = 8,
         read_fn: Optional[Callable[[Path], Optional[np.ndarray]]] = None,
         drop_on_backpressure: bool = False,
+        recorder: Optional[RunTelemetryRecorder] = None,
     ) -> None:
         self.paths = [Path(p) for p in paths]
         self.timestamps = list(timestamps) if timestamps is not None else [float(i) for i in range(len(self.paths))]
@@ -431,6 +455,7 @@ class FrameStream:
         if read_fn is None:
             _native_decoder()  # builds the default reader's library now, not in the first read
         self.drop_on_backpressure = drop_on_backpressure
+        self.recorder = recorder
         self.stats = FrameStreamStats()
         self._buffer = BoundedRingBuffer(buffer_size)
         self._done = threading.Event()
@@ -440,7 +465,8 @@ class FrameStream:
         for index, path in enumerate(self.paths):
             frame = None
             try:
-                frame = self.read_fn(path)
+                with timed_event(self.recorder, "frame_decode", metadata={"index": index}):
+                    frame = self.read_fn(path)
             except Exception:
                 frame = None
             if frame is None:
@@ -450,13 +476,10 @@ class FrameStream:
             if self.drop_on_backpressure:
                 if not self._buffer.push(packet):
                     self.stats.dropped += 1
-            else:
-                # Block politely until there is room.
-                while len(self._buffer) >= self._buffer.capacity and not self._done.is_set():
-                    time.sleep(0.0005)
-                if self._done.is_set():
-                    return
-                self._buffer.push(packet)
+            # Asleep until there is room: polling would take the interpreter
+            # lock from the consuming thread thousands of times a second.
+            elif not self._buffer.put(packet, self._done):
+                return
             self.stats.loaded += 1
         self._done.set()
 

@@ -29,7 +29,7 @@ import logging
 import sys
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -38,7 +38,7 @@ from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
 from mvslam_tpu_torch.backend.pose_graph import PoseGraph3D
 from mvslam_tpu_torch.backend.solvers import SolverConfig
 from mvslam_tpu_torch.core import prng
-from mvslam_tpu_torch.core.telemetry import timed_event
+from mvslam_tpu_torch.core.telemetry import device_span, timed_event
 from mvslam_tpu_torch.geometry.epipolar import decompose_essential, triangulate_normalized
 from mvslam_tpu_torch.geometry.projection import make_K_from_fov, normalize_pixels
 from mvslam_tpu_torch.loopclosure.bow import BoWConfig, BoWDatabase
@@ -111,12 +111,15 @@ def mask_dynamic_regions(frame: np.ndarray, prev: Optional[np.ndarray], threshol
 
 
 def _load_frames(config: SLAMRunConfig):
+    """The input's intrinsics and its opener: ``(open_packets, K)``, where
+    ``open_packets(recorder)`` starts the frame stream; a reader's loader
+    records its ``frame_decode`` spans on ``recorder`` (the ``video`` kind,
+    decoded on the caller's thread, records none)."""
     if config.input_kind == "kitti":
         from mvslam_tpu_torch.data.kitti import KittiSequence
 
         seq = KittiSequence(config.input_path, config.sequence)
-        K = seq.camera_intrinsics()
-        return seq.iter_frames(config.max_frames), K
+        return (lambda recorder: seq.iter_frames(config.max_frames, recorder=recorder)), seq.camera_intrinsics()
     if config.input_kind == "kitti_raw":
         from mvslam_tpu_torch.data.kitti import KittiRawSession
 
@@ -126,12 +129,14 @@ def _load_frames(config: SLAMRunConfig):
             drive=config.kitti_drive,
             camera=config.kitti_camera,
         )
-        return session.iter_frames(config.max_frames), session.camera_intrinsics()
+        return (
+            lambda recorder: session.iter_frames(config.max_frames, recorder=recorder)
+        ), session.camera_intrinsics()
     if config.input_kind == "tum":
         from mvslam_tpu_torch.data.tum import TumSequence
 
         seq = TumSequence(config.input_path)
-        return seq.iter_frames(config.max_frames), seq.camera_intrinsics()
+        return (lambda recorder: seq.iter_frames(config.max_frames, recorder=recorder)), seq.camera_intrinsics()
     if config.input_kind == "images":
         from mvslam_tpu_torch.runtime.frame_stream import FrameStream, _default_read_fn
 
@@ -140,11 +145,10 @@ def _load_frames(config: SLAMRunConfig):
         )
         if config.max_frames:
             paths = paths[: config.max_frames]
-        stream = FrameStream(paths)
         first = _default_read_fn(paths[0]) if paths else None
         h, w = (first.shape if first is not None else (370, 1226))
         # Host intrinsics for the run config: built on the CPU on purpose.
-        return iter(stream), make_K_from_fov(w, h, device="cpu").numpy()
+        return (lambda recorder: iter(FrameStream(paths, recorder=recorder))), make_K_from_fov(w, h, device="cpu").numpy()
     if config.input_kind == "video":
         import cv2
 
@@ -165,7 +169,7 @@ def _load_frames(config: SLAMRunConfig):
                 index += 1
             cap.release()
 
-        return gen(), make_K_from_fov(w, h, device="cpu").numpy()
+        return (lambda recorder: gen()), make_K_from_fov(w, h, device="cpu").numpy()
     raise ValueError(f"unknown input kind {config.input_kind!r}")
 
 
@@ -223,6 +227,8 @@ def _scale_from_rows(loop, chain, kf_a, kf_a_next):
 
 
 _LOOP_GEOM_M = 256  # max matches per loop pair
+_LOOP_THRESHOLD_PX = 2.0  # loop RANSAC's Sampson threshold
+_LOOP_WEIGHT = 5.0  # the loop edge's weight in the pose graph
 
 
 def _loop_pair_post(base_key, salt, idx, dist, second, ok, kpA, kpB, K, thresh):
@@ -274,24 +280,27 @@ def _loop_geometry(system, kf_a, kf_bs, salts):
     t (3), depths (M), pair_a_idx (M), valid&inlier mask (M)].
     RANSAC keys fold the per-pair ``salts`` into the loop_closure
     component key. ``min_inliers`` gates sit on the host (they only affect
-    the success flag, never the model).
+    the success flag, never the model). On a CUDA device the launches are
+    the span ``loop_geometry.device``.
     """
     match = matcher_for(system.device)
     K = _put(system, system.K, torch.float32)
     base_key = system.registry.key_for("loop_closure", system.device)
-    thresh = 2.0 / float(system.K[0, 0])
-    kpA, descA, validA = _put_keyframe(system, kf_a)
-    rows = []
-    for salt, kf_b in zip(salts, kf_bs):
-        kpB, descB, validB = _put_keyframe(system, kf_b)
-        res = match(descA, validA, descB, validB, MatchConfig(cross_check=True))
-        rows.append(
-            _loop_pair_post(
-                base_key, int(salt), res.indices, res.distances, res.second_distances,
-                res.valid, kpA, kpB, K, thresh,
+    thresh = _LOOP_THRESHOLD_PX / float(system.K[0, 0])
+    with device_span(system.telemetry, "loop_geometry", system.device):
+        kpA, descA, validA = _put_keyframe(system, kf_a)
+        rows = []
+        for salt, kf_b in zip(salts, kf_bs):
+            kpB, descB, validB = _put_keyframe(system, kf_b)
+            res = match(descA, validA, descB, validB, MatchConfig(cross_check=True))
+            rows.append(
+                _loop_pair_post(
+                    base_key, int(salt), res.indices, res.distances, res.second_distances,
+                    res.valid, kpA, kpB, K, thresh,
+                )
             )
-        )
-    return torch.stack(rows).cpu().numpy()  # the single fetch
+        packed = torch.stack(rows)
+    return packed.cpu().numpy()  # the single fetch
 
 
 def _unpack_loop_row(row):
@@ -308,30 +317,50 @@ def _unpack_loop_row(row):
     }
 
 
-def _verify_loop(system, kf_a, kf_b, config: SLAMRunConfig, kf_a_next=None):
+def _loop_gate(loop, config: SLAMRunConfig) -> Optional[str]:
+    """The gate that rejects a loop row, None where it passes them all; in
+    the unfused path's order: enough raw matches (``"matches"``), RANSAC
+    success (count ≥ min_inliers and ≥ 8 valid pairs: ``"inliers"``),
+    inlier ratio (``"ratio"``)."""
+    if loop["num_valid"] < config.loop_min_inliers:
+        return "matches"
+    if loop["num_inliers"] < config.loop_min_inliers or loop["num_valid"] < 8:
+        return "inliers"
+    if loop["ratio"] < config.loop_min_inlier_ratio:
+        return "ratio"
+    return None
+
+
+def _verify_loop(system, kf_a, kf_b, config: SLAMRunConfig, kf_a_next=None, record=None):
     """Geometric loop verification: match + essential RANSAC between two
     keyframes; returns (T_a_b relative SE3, inliers, ratio) or None.
 
     The loop pair and the chain-neighbour pair (for the structure-transfer
     scale) are computed by one :func:`_loop_geometry` call; this function
-    is the host gating/assembly.
+    is the host gating/assembly. The span ``loop_geometry`` carries the
+    query, the candidate, whether the loop was accepted and the gate that
+    rejected it. ``record``, a dict, takes the loop row's counts, its
+    pair's feature indices and inlier mask, the gate, and for an accepted
+    loop the edge: R and unit t of the pair, the scale, ``rel`` and the
+    threshold in pixels.
     """
     salts = [int(kf_b.frame_id), int(kf_a.frame_id) * 2 + 1]
     pair_bs = [kf_b, kf_a_next if kf_a_next is not None else kf_b]
-    with timed_event(system.telemetry, "loop_geometry", metadata={"query": int(kf_b.frame_id)}):
+    ids = {"query": int(kf_b.frame_id), "candidate": int(kf_a.frame_id)}
+    with timed_event(system.telemetry, "loop_geometry", metadata=ids) as meta:
         rows = _loop_geometry(system, kf_a, pair_bs, salts)
-    loop = _unpack_loop_row(rows[0])
-
-    # Gates, in the unfused path's order: enough raw matches, RANSAC
-    # success (count ≥ min_inliers and ≥ 8 valid pairs), inlier ratio.
-    if loop["num_valid"] < config.loop_min_inliers:
-        return None
-    if loop["num_inliers"] < config.loop_min_inliers or loop["num_valid"] < 8:
+        loop = _unpack_loop_row(rows[0])
+        gate = _loop_gate(loop, config)
+        meta.update(accepted=gate is None, gate=gate)
+    if record is not None:
+        record.update(
+            gate=gate, num_valid=loop["num_valid"], num_inliers=loop["num_inliers"], inlier_ratio=loop["ratio"],
+            idx_a=loop["idx_a"], ok=loop["ok"],
+        )
+    if gate is not None:
         return None
     inliers = loop["num_inliers"]
     ratio = loop["ratio"]
-    if ratio < config.loop_min_inlier_ratio:
-        return None
     R = loop["R"]
     t = loop["t"]
     # Loop-edge scale: structure transfer through kf_a's chain neighbour
@@ -351,6 +380,8 @@ def _verify_loop(system, kf_a, kf_b, config: SLAMRunConfig, kf_a_next=None):
     rel = np.eye(4)
     rel[:3, :3] = R.T
     rel[:3, 3] = -R.T @ (t * scale)
+    if record is not None:
+        record.update(R=R, t=t, scale=scale, rel=rel, threshold_px=_LOOP_THRESHOLD_PX)
     return rel, inliers, ratio
 
 
@@ -380,22 +411,69 @@ def _propagate_correction(system, corrected) -> None:
     system._pose = corrected[-1].copy()
 
 
-def _correct_keyframe_chain(system, cand_frame_id: int, query_frame_id: int, rel) -> None:
+def _correct_keyframe_chain(system, cand_frame_id: int, query_frame_id: int, rel, record=None) -> None:
     """Pose-graph correction over the keyframe chain for one accepted loop
-    edge ``rel`` (candidate -> query), propagated into the trajectory."""
+    edge ``rel`` (candidate -> query), propagated into the trajectory.
+
+    The span ``loop_pose_graph`` carries the graph's nodes and edges and
+    the iterations the solver ran; on a CUDA device the solve is the span
+    ``pose_graph.device``. ``record``, a dict, takes the loop edge's nodes
+    and weight and the keyframe poses that went into and came out of the
+    solve."""
     kfs = system.keyframes.keyframes
-    with timed_event(system.telemetry, "loop_pose_graph", metadata={"nodes": len(kfs)}):
-        graph = PoseGraph3D.from_pose_matrices([k.pose for k in kfs], device=system.device)
+    before = [k.pose for k in kfs]
+    with timed_event(system.telemetry, "loop_pose_graph", metadata={"nodes": len(kfs)}) as meta:
+        graph = PoseGraph3D.from_pose_matrices(before, device=system.device)
         id_to_node = {k.frame_id: idx for idx, k in enumerate(kfs)}
-        graph.add_loop_matrix(id_to_node[cand_frame_id], id_to_node[query_frame_id], rel, weight=5.0)
-        graph.optimize(SolverConfig(max_iterations=15, damping=1e-4))
+        nodes = (id_to_node[cand_frame_id], id_to_node[query_frame_id])
+        graph.add_loop_matrix(*nodes, rel, weight=_LOOP_WEIGHT)
+        with device_span(system.telemetry, "pose_graph", system.device):
+            result = graph.optimize(SolverConfig(max_iterations=15, damping=1e-4))
         corrected = graph.poses()
+        meta.update(edges=graph.num_edges, iterations=result.iterations)
+    if record is not None:
+        record.update(
+            nodes=nodes, weight=_LOOP_WEIGHT, iterations=result.iterations,
+            poses_before=np.stack(before), poses_after=np.array(corrected, dtype=np.float64),
+        )
     _propagate_correction(system, corrected)
 
 
-def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
-    """Track, close loops, correct the pose graph and evaluate, on ``device``."""
-    packets, K = _load_frames(config)
+class OfflineSummary(dict):
+    """What :func:`run_visual_slam` returns: the items of
+    ``offline_summary.json`` and ``run_dir``, with what stays in memory as
+    attributes: ``loop_records`` (per detected loop: query, candidate, BoW
+    score, the loop row's counts, its pair's feature indices and inlier
+    mask, the rejecting gate or None; per accepted loop also its edge and
+    the keyframe poses into and out of its solve), ``odometry`` (per frame,
+    its pose relative to the frame before as the tracking step chained it,
+    before any loop correction) and ``system``, the :class:`SLAMSystem`
+    (diagnostics, trajectory, keyframes, telemetry)."""
+
+    def __init__(self, items, loop_records, odometry, system):
+        super().__init__(items)
+        self.loop_records = loop_records
+        self.odometry = odometry
+        self.system = system
+
+
+def run_visual_slam(
+    config: SLAMRunConfig,
+    device="cuda",
+    source: Optional[Callable[[Any], Iterable[Any]]] = None,
+) -> OfflineSummary:
+    """Track, close loops, correct the pose graph and evaluate, on ``device``.
+
+    ``source(recorder)``, where given, yields the frame packets in place of
+    the configuration's reader (K still comes from the configuration's
+    calibration); ``recorder`` is the run's telemetry, for the source's own
+    spans, as the readers' ``frame_decode``. Spans: ``run_visual_slam``
+    around the tracking pass, with its frames and the loops detected and
+    accepted; ``bow_keyframe`` per keyframe; ``loop_geometry`` and
+    ``loop_pose_graph`` per detected and accepted loop. Returns an
+    :class:`OfflineSummary`.
+    """
+    open_packets, K = _load_frames(config)
     system = SLAMSystem(
         SLAMSystemConfig(
             run_id=config.run_id,
@@ -408,6 +486,7 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
         ),
         device=device,
     )
+    packets = (source or open_packets)(system.telemetry)
     bow = BoWDatabase(
         BoWConfig(
             vocab_size=64,
@@ -429,6 +508,9 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
 
     loops_detected: List[Dict[str, Any]] = []
     loops_accepted: List[Dict[str, Any]] = []
+    loop_records: List[Dict[str, Any]] = []
+    odometry: Dict[int, np.ndarray] = {}
+    chained = system.pose  # the pose the next frame's step chains onto
     seen_keyframes = 0
 
     def frame_pairs():
@@ -448,15 +530,15 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
         relocalization) for that frame; in windowed mode it lags the
         device by one window, like all host logic.
         """
-        nonlocal seen_keyframes
+        nonlocal seen_keyframes, chained
+        odometry[diag.frame_id] = np.linalg.inv(chained) @ system.pose
         if animator is not None:
             animator.update(system.pose)
-        if not config.enable_loop_closure:
-            return
-        # New keyframe → feed BoW, query for loops (host logic).
-        if len(system.keyframes) > seen_keyframes:
+        if config.enable_loop_closure and len(system.keyframes) > seen_keyframes:
+            # New keyframe → feed BoW, query for loops (host logic).
             seen_keyframes = len(system.keyframes)
             _handle_keyframe(system.keyframes.keyframes[-1])
+        chained = system.pose
 
     def _handle_keyframe(kf):
         """Per-keyframe loop-closure logic (BoW + verification + pose graph)."""
@@ -475,6 +557,8 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
         loops_detected.append(
             {"query": kf.frame_id, "candidate": cand_frame_id, "bow_score": score}
         )
+        record = dict(loops_detected[-1])
+        loop_records.append(record)
         logger.info(
             "loop candidate", extra={"query": kf.frame_id, "candidate": cand_frame_id}
         )
@@ -486,7 +570,7 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
         cand_next = (
             neighbours[cand_idx + 1] if cand_idx + 1 < len(neighbours) else None
         )
-        verified = _verify_loop(system, cand, kf, config, kf_a_next=cand_next)
+        verified = _verify_loop(system, cand, kf, config, kf_a_next=cand_next, record=record)
         if verified is None:
             return
         rel, inliers, ratio = verified
@@ -498,7 +582,7 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
                 "inlier_ratio": ratio,
             }
         )
-        _correct_keyframe_chain(system, cand_frame_id, kf.frame_id, rel)
+        _correct_keyframe_chain(system, cand_frame_id, kf.frame_id, rel, record=record)
         if animator is not None:
             kfs = system.keyframes.keyframes
             node = {k.frame_id: i for i, k in enumerate(kfs)}
@@ -514,20 +598,22 @@ def run_visual_slam(config: SLAMRunConfig, device="cuda") -> Dict[str, Any]:
     # hook above, running as the engine's on_frame callback.
     window = 1 if config.pose_source == "flow_first" else max(1, config.window)
     try:
-        system._run_windowed(frame_pairs(), window, config.windows_per_dispatch, on_frame)
+        with timed_event(system.telemetry, "run_visual_slam") as meta:
+            diags = system._run_windowed(frame_pairs(), window, config.windows_per_dispatch, on_frame)
+            meta.update(frames=len(diags), loops_detected=len(loops_detected), loops_accepted=len(loops_accepted))
     finally:
         if animator is not None:
             animator.stop()
 
     result = system.finalize_run()
-    summary: Dict[str, Any] = {
+    summary = OfflineSummary({
         "run_dir": str(result.run_dir),
         "frames": result.num_frames,
         "keyframes": result.num_keyframes,
         "failures": result.num_failures,
         "loops_detected": loops_detected,
         "loops_accepted": loops_accepted,
-    }
+    }, loop_records, odometry, system)
     if config.ground_truth_path is not None:
         from mvslam_tpu_torch.eval.trajectory import (
             compute_additional_metrics,
