@@ -1461,8 +1461,8 @@ def offline_runs(tag: str, num_frames: int, variants, dev):
     # two frames' places, 0 where frame q revisits frame (num_frames - 1) - q.
     edges, verify_loop = [], offline._verify_loop
 
-    def recording_verify(system, kf_a, kf_b, config, kf_a_next=None):
-        out = verify_loop(system, kf_a, kf_b, config, kf_a_next=kf_a_next)
+    def recording_verify(system, kf_a, kf_b, config, kf_a_next=None, record=None):
+        out = verify_loop(system, kf_a, kf_b, config, kf_a_next=kf_a_next, record=record)
         if out is not None:
             steps = [np.linalg.norm(b.pose[:3, 3] - a.pose[:3, 3])
                      for a, b in zip(system.keyframes.keyframes[:-1], system.keyframes.keyframes[1:])]

@@ -31,6 +31,11 @@ batch ``feature_batch`` (frame ids and fill) on its own thread, and stamps
 each result with the moment it was ready (``FeatureResult.ready_s``), all
 on the recorder's clock.
 
+Readiness: each result that becomes ready counts in ``ready_count`` and
+notifies ``ready_signal``, a condition a consumer can wait on in place of
+polling ``drain_ready`` (``SLAMSystem.run_stream_async`` waits on it for a
+result or its next packet, whichever comes first).
+
 Process isolation: the reference's ProcessPoolExecutor feature workers
 (``feature_control_plane.py:248-319``) are not reproduced, as in the JAX
 package: a worker process would need a CUDA context of its own on the
@@ -222,6 +227,8 @@ class FeatureControlPlane:
         self._dispatch_ema_s = _FLUSH_FLOOR_S
         self.batch_fill_counts = [0] * max(1, self.config.batch_size)
         self._closed = False
+        self.ready_signal = threading.Condition()
+        self.ready_count = 0  # results that became ready; read and written under ready_signal
 
     def warmup(self, frame: np.ndarray) -> None:
         """Build the kernels and run extraction once at this frame shape,
@@ -260,6 +267,11 @@ class FeatureControlPlane:
 
     def _now(self) -> Optional[float]:
         return None if self._recorder is None else self._recorder.now()
+
+    def _notify_ready(self, _future: Optional[Future] = None) -> None:
+        with self.ready_signal:
+            self.ready_count += 1
+            self.ready_signal.notify_all()
 
     def _queued(self, seq_id: int, submitted_s: Optional[float]) -> None:
         if self._recorder is not None and submitted_s is not None:
@@ -438,6 +450,7 @@ class FeatureControlPlane:
                 )
             self.submitted += 1
             self.completed += 1
+            self._notify_ready()
             return True
         if not self._inflight.acquire(timeout=timeout):
             self.rejected += 1
@@ -445,6 +458,7 @@ class FeatureControlPlane:
             return False
         if self._batch_mode:
             future: Future = Future()
+            future.add_done_callback(self._notify_ready)
             with self._lock:
                 self._futures[seq_id] = future
             self._batch_queue.put(_PendingItem(seq_id, frame, cache_key, future, submitted_s))
@@ -452,6 +466,7 @@ class FeatureControlPlane:
             future = self._executor.submit(self._extract, seq_id, frame, cache_key, submitted_s)
             with self._lock:
                 self._futures[seq_id] = future
+            future.add_done_callback(self._notify_ready)
         self.submitted += 1
         return True
 

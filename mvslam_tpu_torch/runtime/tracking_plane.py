@@ -122,6 +122,14 @@ class PendingFrameBuffer:
                     expired.append(entry)
         return expired
 
+    def next_deadline(self) -> Optional[float]:
+        """The earliest deadline of a frame still pending (on the buffer's
+        clock), or None; drops the heap's entries of frames already gone."""
+        with self._lock:
+            while self._deadline_heap and self._deadline_heap[0][1] not in self._frames:
+                heapq.heappop(self._deadline_heap)
+            return self._deadline_heap[0][0] if self._deadline_heap else None
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._frames)

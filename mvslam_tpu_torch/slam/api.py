@@ -77,6 +77,12 @@ from mvslam_tpu_torch.slam.tracking import (
 
 logger = logging.getLogger(__name__)
 
+# ``run_stream_async`` gives up on the frames still pending once this long
+# passes without a result after its source ended (``TrackingControlPlane.
+# collect``'s default).
+_COLLECT_TIMEOUT_S = 30.0
+
+
 @dataclass(frozen=True)
 class SLAMSystemConfig:
     """Same fields and defaults as the reference's config;
@@ -672,17 +678,31 @@ class SLAMSystem:
         so both paths give one trajectory. On close a ``ControlPlaneHub``
         report of both planes is saved as ``control_plane_report``.
 
+        ``packets`` is pulled on a thread of its own, one packet ahead of
+        the submits (``runtime/packet_pump.py``). This thread waits for
+        whichever comes first: the next packet, a feature result ready
+        (the feature plane's ``ready_signal``) or the earliest pending
+        frame's TTL. On waking it submits the packet waiting, if any, then
+        tracks every result ready, so a frame is handed back as soon as its
+        features are ready rather than at the next packet; with a source
+        that never blocks (a list) that is submit one, then drain. After
+        the source ends it goes on until no frame is pending, or until
+        ``_COLLECT_TIMEOUT_S`` pass without a result.
+
         Spans (``self.telemetry``; each of one frame carries its
         ``frame_id``): ``run_stream_async`` around the call;
-        ``input_wait`` around each pull from ``packets``; on the feature
-        plane's thread ``feature_queue`` (submit to its batch's start) and
-        ``feature_batch`` (one per batch); ``ready_wait`` from the moment
-        a frame's features are ready to the start of its tracking, and
-        ``frame_process`` around its tracking, with ``track_step`` and
-        ``local_ba`` inside.
+        ``input_wait`` around each pull from ``packets``, on the pump's
+        thread; on the feature plane's thread ``feature_queue`` (submit to
+        its batch's start) and ``feature_batch`` (one per batch);
+        ``ready_wait`` from the moment a frame's features are ready to the
+        start of its tracking; ``ready_wake`` from that moment to the
+        moment this thread woke, for a frame whose tracking began on that
+        wake-up with no newer packet submitted first; ``frame_process``
+        around its tracking, with ``track_step`` and ``local_ba`` inside.
         """
         from mvslam_tpu_torch.runtime.feature_plane import FeatureControlPlane
         from mvslam_tpu_torch.runtime.hub import ControlPlaneHub, ControlPlaneStageAdapter
+        from mvslam_tpu_torch.runtime.packet_pump import PacketPump
         from mvslam_tpu_torch.runtime.tracking_plane import TrackingControlPlane
         from mvslam_tpu_torch.slam.tracking import feature_set_from_arrays
 
@@ -693,9 +713,12 @@ class SLAMSystem:
         diags: List[FrameDiagnostics] = []
         prev_fs = self._prev_features
 
-        def handle(result) -> None:
+        def handle(result, woke_s: Optional[float]) -> None:
             fr = result.feature_result
             if fr is not None and fr.ready_s is not None:
+                if woke_s is not None:
+                    end = max(woke_s, fr.ready_s)  # ready between the wake-up and the drain
+                    self.telemetry.span("ready_wake", fr.ready_s, end, {"frame_id": result.seq_id})
                 self.telemetry.span("ready_wait", fr.ready_s, self.telemetry.now(), {"frame_id": result.seq_id})
             with timed_event(self.telemetry, "frame_process", metadata={"frame_id": result.seq_id}):
                 track_result(result)
@@ -754,32 +777,50 @@ class SLAMSystem:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        warmed = False
-        packets, end = iter(packets), object()
+        signal = feature_plane.ready_signal
+        pump = PacketPump(packets, signal, self.telemetry, first_frame_id=self._frame_count)
+        clock = control_plane.clock
+        warmed = ended = False
+        seen = 0  # feature_plane.ready_count at the last wake-up
+        give_up = None  # once the source has ended: when to stop waiting for results
         try:
             with timed_event(self.telemetry, "run_stream_async"), ExitStack() as after_warm:
-                while True:
-                    with timed_event(self.telemetry, "input_wait") as meta:
-                        packet = next(packets, end)
-                        if packet is not end:
-                            meta["frame_id"] = self._frame_count
-                    if packet is end:
-                        break
-                    frame = np.asarray(packet.frame)
-                    if not warmed:
-                        warm(frame)
-                        warmed = True
-                        # From here on the feature plane launches on the
-                        # device from its own thread: no call captures.
-                        after_warm.enter_context(PAIR_GRAPHS.captures_closed())
-                    frame_id = self._frame_count
-                    self._frame_count += 1
-                    control_plane.submit_frame(frame_id, packet.timestamp, frame)
-                    for result in control_plane.drain_ready():
-                        handle(result)
-                for result in control_plane.collect():
-                    handle(result)
+                pump.start()
+                while not ended or len(control_plane.pending):
+                    wake_at = [t for t in (control_plane.pending.next_deadline(), give_up) if t is not None]
+                    with signal:
+                        signal.wait_for(
+                            lambda: (not ended and pump.ready()) or feature_plane.ready_count != seen,
+                            max(0.0, min(wake_at) - clock()) if wake_at else None,
+                        )
+                        seen = feature_plane.ready_count
+                        packet = None if ended else pump.take()
+                    woke_s = self.telemetry.now()
+                    if packet is PacketPump.END:
+                        ended, packet = True, None
+                        give_up = clock() + _COLLECT_TIMEOUT_S
+                    if packet is not None:
+                        frame = np.asarray(packet.frame)
+                        if not warmed:
+                            warm(frame)
+                            warmed = True
+                            # From here on the feature plane launches on the
+                            # device from its own thread: no call captures.
+                            after_warm.enter_context(PAIR_GRAPHS.captures_closed())
+                        frame_id = self._frame_count
+                        self._frame_count += 1
+                        control_plane.submit_frame(frame_id, packet.timestamp, frame)
+                        pump.advance()
+                    results = control_plane.drain_ready()
+                    for result in results:
+                        handle(result, None if packet is not None else woke_s)
+                    if ended:
+                        if results:
+                            give_up = clock() + _COLLECT_TIMEOUT_S
+                        elif clock() >= give_up:
+                            break
         finally:
+            pump.close()
             hub = ControlPlaneHub(
                 [
                     ControlPlaneStageAdapter(
