@@ -114,11 +114,11 @@ def match_descriptors_host(desc1, valid1, desc2, valid2, config: MatchConfig = M
 
 def matcher_for(device) -> Callable[..., MatchResult]:
     """The matcher for descriptors on ``device``: on the CPU the native
-    library's C++ matcher (faster there than the product: PERF.md, the
-    ``native`` phase of ``chip_smoke.py``), elsewhere
-    :func:`match_descriptors`.
-    Both give the same :class:`MatchResult` bit for bit. On the CPU this
-    builds the library if the process has not loaded it yet, so the
+    library's C++ matcher (faster there than the product), elsewhere
+    :func:`match_descriptors`. Both give the same :class:`MatchResult` bit
+    for bit (on the card:
+    ``tests/test_torch_cuda.py::test_native_matcher_equals_the_cards_matcher``).
+    On the CPU this builds the library if the process has not loaded it yet, so the
     matching paths' owners (``SLAMSystem``, ``WindowBundleAdjuster``,
     ``MapRelocalizer``) call it when they start, not in their first match.
     """

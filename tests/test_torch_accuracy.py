@@ -10,7 +10,8 @@ port on the CPU, held to ``tests/test_accuracy.py``'s own assertions:
 - the noisy arc with window BA (``TestLocalBAAccuracy``): BA on beats BA
   off.
 
-``chip_smoke.py``'s accuracy phase runs the same scenes on the card.
+``tests/test_torch_cuda.py::test_accuracy_scenes_on_the_card_pass_the_gate``
+runs the same scenes on the card.
 """
 
 import numpy as np

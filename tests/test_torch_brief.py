@@ -164,8 +164,9 @@ def test_detect_and_describe_too_small_image_is_all_invalid():
 
 def test_offline_scene_blur_rounding_flips_one_descriptor_bit():
     """Frame 0 of the offline benchmark's out-and-back scene (1226x370,
-    400 quads, noise 6, seed 2, as ``chip_smoke.py::offline_scene`` writes
-    it): the one descriptor bit in which the packages differ there.
+    400 quads, noise 6, seed 2, as
+    ``tests/test_torch_cuda.py::test_run_visual_slam_from_png_files_on_the_card``
+    writes it): the one descriptor bit in which the packages differ there.
 
     Inside a jitted program XLA:CPU contracts the blur's multiply-adds into
     fused multiply-adds (an order that the compiler chooses per fused

@@ -1,7 +1,12 @@
-"""CUDA kernels K1 and K2 against their plain PyTorch versions, on the card,
-alone and inside LK and ``SLAMSystem``; the back end's BA and Gauss-Newton
-cores on the card against the same calls on the CPU, and bit-equal between
-two card runs; the bag-of-words stages and the device index on the card.
+"""The port's one check on the card. CUDA kernels K1 and K2 against their
+plain PyTorch versions at every shape the benchmark's cells and the paths
+here launch them at, alone and inside LK and ``SLAMSystem``; the back end's
+BA and Gauss-Newton cores on the card against the same calls on the CPU,
+and bit-equal between two card runs; the bag-of-words stages, the device
+index and the native matcher on the card; the live path, the runner's
+ingestion modes, flow-first tracking, the offline CLI from PNG files and
+the accuracy gate's scenes through the port on the card. Timing is the
+benchmark's (``python3 -m portbench.run``), not this file's.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``); without a
 card they skip. This file imports no JAX, so it also runs on a machine
@@ -9,6 +14,10 @@ without it, where the JAX-importing ``conftest.py`` must be left out::
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 """
+
+import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,12 +27,68 @@ from mvslam_tpu_torch.ops import cuda_fast, cuda_patches
 
 pytestmark = pytest.mark.cuda
 
+REPO = Path(__file__).resolve().parents[1]
+
+def _cell_shapes():
+    """K1's (B, H, W) and K2's (B, H, W, points) of every cell that
+    ``BENCHMARK.json`` declares, read from its configuration and traffic
+    files: the camera's size and feature count, at the frames one launch
+    takes (the offline traffic's window, the offline CLI's window, the live
+    feature plane's batch) and at one frame (the bootstrap)."""
+    from mvslam_tpu_torch.runtime.feature_plane import FeatureControlConfig
+
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    files = {c["name"]: REPO / c["file"] for c in bench["configs"]}
+    k1, k2 = set(), set()
+    for cell in bench["workloads"]:
+        config = json.loads(files[cell["config"]].read_text())
+        traffic = json.loads((REPO / "portbench" / "traffic" / f"{cell['traffic']}.json").read_text())
+        batch = {  # an entry without a rule here fails collection: give it one
+            "offline": lambda: traffic["window"],
+            "loops": lambda: config["pipeline"]["run"]["window"],
+            "live": lambda: FeatureControlConfig(**traffic.get("feature_control", {})).batch_size,
+        }[traffic["entry"]]()
+        h, w = config["camera"]["height"], config["camera"]["width"]
+        for b in (int(batch), 1):
+            k1.add((b, h, w))
+            k2.add((b, h, w, config["pipeline"]["feature"]["num_features"]))
+    return k1, k2
+
+
+# The shapes the kernels launch at, K1's (B, H, W) and K2's (B, H, W,
+# points): every cell's, and those of the paths in this file: 370x1226 at a
+# logical mesh slot's 16, 8, 4, 2 and 1 frames with 2,048 points; the
+# accuracy scenes' 240x320 at their window of 8 and one frame, with 2,048
+# and 512 points; LK's two lower pyramid levels of 370x1226. The kernel
+# tests compare every one with the plain versions, and
+# ``_assert_launched_shapes_compared`` holds each path to them.
+_CELL_K1, _CELL_K2 = _cell_shapes()
+K1_PATH_SHAPES = sorted(_CELL_K1 | {(b, 370, 1226) for b in (16, 8, 4, 2, 1)} | {(8, 240, 320), (1, 240, 320)})
+K2_PATH_SHAPES = sorted(
+    _CELL_K2 | {(b, 370, 1226, 2048) for b in (16, 8, 4, 2, 1)}
+    | {(b, 240, 320, n) for b in (8, 1) for n in (2048, 512)} | {(1, 185, 613, 2048), (1, 92, 306, 2048)}
+)
+
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels run only on the card)")
     return torch.device("cuda", 0)
+
+
+def _launch_counts():
+    """The kernels' launches so far, by shape."""
+    return cuda_fast.fast_detect.launch_shapes.copy(), cuda_patches.extract_patches.launch_shapes.copy()
+
+
+def _assert_launched_shapes_compared(before):
+    """Both kernels launched since ``before`` (``_launch_counts()``), and
+    only at shapes the kernel tests compare with the plain versions."""
+    k1, k2 = (now - then for now, then in zip(_launch_counts(), before))
+    assert k1 and k2, (k1, k2)
+    assert {key[1:] for key in k1} <= set(K1_PATH_SHAPES), k1
+    assert {key[1:] for key in k2} <= set(K2_PATH_SHAPES), k2
 
 
 def _textured(b, h, w, seed=0):
@@ -40,11 +105,12 @@ def _textured(b, h, w, seed=0):
 @pytest.mark.parametrize(
     "shape",
     [
-        (2, 45, 77), (3, 96, 160), (1, 370, 1226),
+        (2, 45, 77), (3, 96, 160),
         # widths no multiple of 4, 8, 16 or the tile, heights no multiple of
         # the tile, images smaller than one tile; B = 1 and 16 (the kernel
         # picks its tile height by the tile count)
-        (16, 370, 1226), (1, 185, 613), (16, 92, 306), (1, 33, 77), (16, 45, 45), (1, 7, 9), (2, 3, 5),
+        (1, 185, 613), (16, 92, 306), (1, 33, 77), (16, 45, 45), (1, 7, 9), (2, 3, 5),
+        *K1_PATH_SHAPES,
     ],
 )
 def test_fast_detect_kernel_matches_plain(cuda, dtype, shape):
@@ -105,11 +171,12 @@ def _k2_against_plain(image, xy, out_dtype):
 # of 2,048 or 8,453 its 8-keypoint blocks, of which 132 SMs hold at most 8
 # each (2,048 threads): 8,453 is past one full wave of its grid.
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [0, 1, 7, 9, 37, 2048, 132 * 8 * 8 + 5])
-def test_extract_patches_kernel_matches_plain(cuda, out_dtype, n):
+@pytest.mark.parametrize("shape", [(3, 70, 101, n) for n in (0, 1, 7, 9, 37, 2048, 132 * 8 * 8 + 5)] + K2_PATH_SHAPES)
+def test_extract_patches_kernel_matches_plain(cuda, out_dtype, shape):
     """Counts that are no multiple of the block's keypoints, none at all,
-    and more than the card holds at once; half the points on exact .5."""
-    b, h, w = 3, 70, 101
+    and more than the card holds at once, and the paths' shapes; half the
+    points on exact .5, the rest spilling 20 px past every border."""
+    b, h, w, n = shape
     image = torch.from_numpy(_textured(b, h, w)).to(cuda)
     rng = np.random.default_rng(n)
     xy = rng.uniform(-20, [w + 20, h + 20], size=(b, n, 2)).astype(np.float32)
@@ -214,6 +281,35 @@ def test_slam_system_on_the_card_launches_both_kernels(cuda, tmp_path):
     assert cuda_patches.extract_patches.launches - k2 >= 6 + 5 * 30
 
 
+def test_flow_first_on_the_card_over_a_full_width_drive(cuda, tmp_path):
+    """``pose_source="flow_first"`` frame by frame over 1 + 32 rendered
+    1226x370 frames (400 quads, the camera sliding 0.1 along x and 0.02
+    along z a frame) at 2,048 features, 512 matches and 512 hypotheses: at
+    least 30 frames posed by flow, LK's 30 K2 launches a frame at its three
+    pyramid levels, and every launch at a shape the kernel tests compare."""
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    frames, _, (fx, fy, cx, cy), _ = render_scene(num_frames=33, h=370, w=1226, seed=0, n_pts=400,
+                                                  traj_fn=lambda i: (np.eye(3), np.array([0.1, 0.0, 0.02]) * i))
+    cfg = SLAMSystemConfig(
+        output_root=tmp_path, fx=fx, fy=fy, cx=cx, cy=cy, pose_source="flow_first",
+        feature=FeaturePipelineConfig(num_features=2048, max_matches=512),
+        pose=RobustPoseEstimatorConfig(num_hypotheses=512),
+        enable_local_ba=False, enable_relocalization=False, persist_map_snapshot=False,
+    )
+    k2, before = cuda_patches.extract_patches.launches, _launch_counts()
+    diags = SLAMSystem(cfg, device=cuda).run_sequence(frames, window=1)
+    tracked = diags[1:]
+    assert sum(d.pose_success and (d.model_type or "").startswith("flow_") for d in tracked) >= 30, [
+        d.model_type for d in tracked
+    ]
+    assert cuda_patches.extract_patches.launches - k2 >= len(frames) + 30 * len(tracked)
+    _assert_launched_shapes_compared(before)
+
+
 def _ba_problem(W=5, P=120, seed=0, visible=1.0, pose_noise=0.02):
     """A window of W poses 0.5 apart observing P points (0.5 px noise), the
     later poses and the points perturbed: the padded arrays ``_ba_core``
@@ -274,16 +370,48 @@ def _pose_graph(model, n=60, seed=0):
     return graph._build_graph()
 
 
+def _lap_graph(num_poses=1000, laps=10, seed=0):
+    """An SE3 graph of ``num_poses`` poses driven ``laps`` times around a
+    20-unit circle (a slight climb per lap): the chain composed from noisy
+    odometry, and a loop edge (weight 5) from the first pose to each later
+    lap's start and to the last pose. Returns the graph (on the CPU) and the
+    true poses."""
+    from mvslam_tpu_torch.backend.pose_graph import PoseGraph3D
+    from mvslam_tpu_torch.geometry import lie_np
+
+    rng = np.random.default_rng(seed)
+    per_lap = num_poses // laps
+    truth = []
+    for i in range(num_poses):
+        a = 2 * np.pi * i / per_lap
+        truth.append(lie_np.se3_matrix(lie_np.so3_exp(np.asarray([0.0, 0.0, a + np.pi / 2])),
+                                       np.asarray([20.0 * np.cos(a), 20.0 * np.sin(a), 0.05 * i / per_lap])))
+    chain = [truth[0]]
+    for a, b in zip(truth[:-1], truth[1:]):
+        delta = lie_np.se3_matrix_to_params(np.linalg.inv(a) @ b)
+        delta = delta + np.concatenate([rng.normal(scale=0.02, size=3), rng.normal(scale=0.002, size=3)])
+        chain.append(chain[-1] @ lie_np.se3_params_to_matrix(delta))
+    graph = PoseGraph3D.from_pose_matrices(np.stack(chain), device="cpu")
+    for j in [k * per_lap for k in range(1, laps)] + [num_poses - 1]:
+        graph.add_loop_matrix(0, j, np.linalg.inv(truth[0]) @ truth[j], weight=5.0)
+    return graph, np.stack(truth)
+
+
 @pytest.mark.parametrize("method", ["cholesky", "cg"])
-@pytest.mark.parametrize("model", ["se2", "se3", "sim3"])
+@pytest.mark.parametrize("model", ["se2", "se3", "sim3", "se3_1000"])
 def test_gauss_newton_core_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda, model, method):
     """The packed GN core on the card against the same call on the CPU,
     within twice the CPU's float32 distance from a float64 run plus 1e-5
     (a 60-pose chain's dense Cholesky in float32 lands up to 2e-3 from
-    float64), and bit-equal between two card runs."""
+    float64), and bit-equal between two card runs: 60-pose chains of each
+    model, and ``_lap_graph``'s 1,000 SE3 poses (a dense 6,000 x 6,000
+    system, the size of the loop cell's whole-map solves). The final cost
+    within 1e-4 relative; at 1,000 poses, where the CPU's float32 cost by
+    Cholesky lies 7.6e-4 relative from float64's, within that distance
+    twice over as well."""
     from mvslam_tpu_torch.backend.solvers import SolverConfig, gauss_newton_core_packed
 
-    fg = _pose_graph(model)
+    fg = _lap_graph()[0]._build_graph() if model == "se3_1000" else _pose_graph(model)
     config = SolverConfig(max_iterations=15, damping=1e-4, method=method)
 
     def run(device, dtype=torch.float32):
@@ -296,31 +424,41 @@ def test_gauss_newton_core_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(c
     x = slice(1, 1 + n * d)
     assert np.isfinite(gpu1).all()
     np.testing.assert_allclose(gpu1[x], cpu[x], atol=1e-5 + 2 * np.abs(cpu[x] - cpu64[x]).max())
-    assert gpu1[0] == pytest.approx(cpu[0], rel=1e-4, abs=1e-7)
+    cost_tol = 2 * abs(float(cpu[0]) - float(cpu64[0])) if model == "se3_1000" else 0.0
+    assert gpu1[0] == pytest.approx(cpu[0], rel=1e-4, abs=1e-7 + cost_tol)
     assert np.array_equal(gpu1, gpu2)
 
 
 def test_slam_system_with_local_ba_on_the_card(cuda, tmp_path):
     """``SLAMSystem`` at its default BA setting on the card: local BA runs
-    on every keyframe window and at least one refinement is accepted."""
+    on every keyframe window, at least one refinement is accepted (the
+    trajectory is not the one a run with BA off gives), and a second run
+    gives the same trajectory bit for bit."""
     from mvslam_tpu_torch.data.synthetic import render_scene
     from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
     from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
     from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
 
     frames, _, (fx, fy, cx, cy), _ = render_scene(num_frames=8, h=240, w=320, seed=1)
-    cfg = SLAMSystemConfig(
-        output_root=tmp_path, fx=fx, fy=fy, cx=cx, cy=cy,
-        feature=FeaturePipelineConfig(num_features=256, max_matches=128),
-        pose=RobustPoseEstimatorConfig(num_hypotheses=128),
-        enable_relocalization=False, persist_map_snapshot=False,
-    )
-    system = SLAMSystem(cfg, device=cuda)
-    diags = system.run_sequence(frames, window=4, windows_per_dispatch=2)
+
+    def run(run_id, local_ba=True):
+        cfg = SLAMSystemConfig(
+            run_id=run_id, output_root=tmp_path, fx=fx, fy=fy, cx=cx, cy=cy,
+            feature=FeaturePipelineConfig(num_features=256, max_matches=128),
+            pose=RobustPoseEstimatorConfig(num_hypotheses=128),
+            enable_local_ba=local_ba, enable_relocalization=False, persist_map_snapshot=False,
+        )
+        system = SLAMSystem(cfg, device=cuda)
+        diags = system.run_sequence(frames, window=4, windows_per_dispatch=2)
+        return system, diags, np.stack(system.trajectory.poses)
+
+    system, diags, poses = run("ba")
     assert sum(d.pose_success for d in diags) >= 7
     events = [e for e in system.telemetry.events() if e.name == "local_ba"]
     assert len(events) == sum(d.is_keyframe for d in diags) - 1 >= 5
     assert system._local_ba.last_diagnostics is not None
+    assert np.array_equal(run("ba_again")[2], poses)
+    assert not np.array_equal(run("no_ba", local_ba=False)[2], poses)
 
 
 def test_argmin_and_stable_topk_tie_order_on_the_card(cuda):
@@ -370,44 +508,73 @@ def test_bow_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda):
     assert dots.dtype == torch.float32
 
 
-def test_device_index_on_the_card_equals_the_host_ranking(cuda):
-    """The index phase's checks at a small size: top-k ids equal the host's
-    (-score, frame id) order with planted exact ties, a grown index equals
-    a bulk load, out-of-order ids raise."""
+def _index_scene(rows, vocab, num_queries, seed=1):
+    """``rows`` seeded sparse, L2-normalised histograms over ``vocab`` words
+    (a few words carry the mass, as in word histograms) with planted exact
+    ties (copies of a row), frame ids 0, 2, 4, ...; the queries are the
+    tied rows, row 77 and fresh histograms, ``num_queries`` in all."""
+    rng = np.random.default_rng(seed)
+    hist = rng.gamma(0.15, size=(rows, vocab)).astype(np.float32)
+    planted = [(5, 2000), (16, 17), (rows // 2, rows - 1)]
+    for src, dst in planted:
+        hist[dst] = hist[src]
+    hist /= np.linalg.norm(hist, axis=1, keepdims=True)
+    fresh = rng.gamma(0.15, size=(num_queries - len(planted) - 1, vocab))
+    queries = [hist[src] for src, _ in planted] + [hist[77]] + list(
+        (fresh / np.linalg.norm(fresh, axis=1, keepdims=True)).astype(np.float32))
+    return hist, list(range(0, 2 * rows, 2)), planted, queries
+
+
+def _assert_index_is_the_host_ranking(index, hist, planted, queries, k=16):
+    """Each query's top-k against a float64 host ranking by (-score, row):
+    every returned score is its row's score within 1e-5, and a row differs
+    from the host's at a position only where the host's scores there lie
+    within 1e-6 of a neighbour's and are not equal; each planted tie comes
+    back lower row first."""
+    hist64 = hist.astype(np.float64)
+    for q in queries:
+        scores = hist64 @ q.astype(np.float64)
+        order = np.lexsort((np.arange(len(hist)), -scores))
+        top = index.topk(q, k=k)
+        got = [i // 2 for i, _ in top]
+        assert max(abs(s - scores[r]) for (_, s), r in zip(top, got)) <= 1e-5
+        clear = np.abs(np.diff(scores[order[: k + 1]])) > 1e-6
+        for pos in range(k):
+            if got[pos] != order[pos]:
+                assert not clear[max(pos - 1, 0)] or not clear[pos], (pos, got, order[:k])
+                assert scores[got[pos]] != scores[order[pos]]
+    for (src, dst), q in zip(planted, queries):
+        assert [i // 2 for i, _ in index.topk(q, k=2)] == [src, dst]
+
+
+@pytest.mark.parametrize("rows,vocab", [(3000, 64), (50_000, 256)])
+def test_device_index_on_the_card_equals_the_host_ranking(cuda, rows, vocab):
+    """Top-k ids equal the host's (-score, frame id) order with planted
+    exact ties, scores equal the host's within 1e-5, a grown index answers
+    as a bulk load does, out-of-order ids raise: at 3,000 x 64 and at map
+    scale, 50,000 histograms of 256 words (51 MB, more than the card's
+    L2)."""
     from mvslam_tpu_torch.loopclosure.device_index import DeviceBoWIndex
 
-    rng = np.random.default_rng(1)
-    hist = rng.gamma(0.15, size=(3000, 64)).astype(np.float32)
-    hist[2000] = hist[5]
-    hist[17] = hist[16]
-    hist /= np.linalg.norm(hist, axis=1, keepdims=True)
-    ids = list(range(0, 6000, 2))
+    hist, ids, planted, queries = _index_scene(rows, vocab, num_queries=100)
     bulk = DeviceBoWIndex.from_histograms(ids, hist, device=cuda)
-    grown = DeviceBoWIndex(64, 8, device=cuda)
+    grown = DeviceBoWIndex(vocab, 8, device=cuda)
     for i, row in zip(ids, hist):
         grown.add(i, row)
-    assert grown.capacity == 4096 and bulk._buf.device.type == "cuda"
-    for q in (hist[5], hist[16], hist[77], (lambda v: v / np.linalg.norm(v))(rng.gamma(0.15, size=64).astype(np.float32))):
-        scores = hist.astype(np.float64) @ q.astype(np.float64)
-        order = np.lexsort((np.arange(3000), -scores))
-        got = [i // 2 for i, _ in bulk.topk(q, k=16)]
-        clear = np.abs(np.diff(scores[order[:17]])) > 1e-6
-        for pos in range(16):
-            if got[pos] != order[pos]:
-                assert not clear[max(pos - 1, 0)] or not clear[pos], (pos, got, order[:16])
-                assert scores[got[pos]] != scores[order[pos]]
-        assert [i for i, _ in grown.topk(q, k=16)] == [i for i, _ in bulk.topk(q, k=16)]
-        np.testing.assert_allclose(bulk.scores(q), scores, atol=1e-5)
-    assert [i // 2 for i, _ in bulk.topk(hist[5], k=2)] == [5, 2000]
-    assert [i // 2 for i, _ in bulk.topk(hist[16], k=2)] == [16, 17]
+    assert grown.capacity == 1 << (rows - 1).bit_length() and bulk._buf.device.type == "cuda"
+    _assert_index_is_the_host_ranking(bulk, hist, planted, queries)
+    for q in queries:
+        a, b = grown.topk(q, k=16), bulk.topk(q, k=16)
+        assert [i for i, _ in a] == [i for i, _ in b] and max(abs(x[1] - y[1]) for x, y in zip(a, b)) <= 1e-6
+        np.testing.assert_allclose(bulk.scores(q), hist.astype(np.float64) @ q.astype(np.float64), atol=1e-5)
     with pytest.raises(ValueError, match="strictly increasing"):
         grown.add(10, hist[0])
 
 
 def test_default_configuration_relocalizes_on_the_card(cuda, tmp_path):
     """``SLAMSystem`` with nothing switched off, on the card: an injected
-    loss relocalizes against the snapshot built on demand, and the
-    snapshot is persisted and reloads."""
+    loss relocalizes against the snapshot built on demand, the snapshot is
+    persisted and reloads, and a second system relocalizes against it."""
     from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
     from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
     from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
@@ -434,6 +601,14 @@ def test_default_configuration_relocalizes_on_the_card(cuda, tmp_path):
     assert result.num_relocalizations >= 1 and result.map_snapshot_paths is not None
     snapshot = load_map_snapshot(result.map_snapshot_paths["arrays"], result.map_snapshot_paths["metadata"])
     assert len(snapshot.keyframes) == 6
+    # A second system armed with the persisted snapshot relocalizes the
+    # same frame against it and builds none of its own.
+    second = SLAMSystem(dataclasses.replace(cfg, run_id="reloaded"), device=cuda)
+    second.load_map_snapshot(result.map_snapshot_paths["arrays"], result.map_snapshot_paths["metadata"])
+    second.inject_tracking_loss(6)
+    again = second.run_sequence(frames, window=1)
+    assert again[6].relocalized and second.finalize_run().num_relocalizations >= 1
+    assert "map_snapshot_build" not in [e.name for e in second.telemetry.events()]
 
 
 def test_loop_geometry_on_the_card_matches_the_cpu(cuda):
@@ -578,18 +753,24 @@ def test_run_stream_async_on_the_card_equals_process_frame(cuda, tmp_path):
     """``SLAMSystem.run_stream_async`` at the default configurations over
     1 + 12 bench frames: the trajectory and diagnostics bit-equal to the
     same frames through ``process_frame``, nothing dropped, both kernels
-    launched at batch 4 on the assembler thread."""
+    launched at batch 4 on the assembler thread and only at compared
+    shapes."""
     from mvslam_tpu_torch.data.bench_frames import make_frames
     from mvslam_tpu_torch.runtime.frame_stream import packets_from_arrays
     from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
 
     frames = [f.astype(np.uint8) for f in make_frames(13)]
-    live = SLAMSystem(SLAMSystemConfig(run_id="async", output_root=tmp_path), device=cuda)
-    shapes_before = cuda_fast.fast_detect.launch_shapes[("torch.uint8", 4, 370, 1226)]
-    diags = live.run_stream_async(packets_from_arrays(frames))
-    assert cuda_fast.fast_detect.launch_shapes[("torch.uint8", 4, 370, 1226)] - shapes_before >= 4
+    # The process_frame run goes first: a process's first window BA takes
+    # seconds (the solver's libraries load), which would expire the live
+    # run's frames against their 5 s TTL.
     single = SLAMSystem(SLAMSystemConfig(run_id="single", output_root=tmp_path), device=cuda)
     single_diags = [single.process_frame(f, float(i)) for i, f in enumerate(frames)]
+    live = SLAMSystem(SLAMSystemConfig(run_id="async", output_root=tmp_path), device=cuda)
+    before = _launch_counts()
+    diags = live.run_stream_async(packets_from_arrays(frames))
+    batch4 = ("torch.uint8", 4, 370, 1226)
+    assert cuda_fast.fast_detect.launch_shapes[batch4] - before[0][batch4] >= 4
+    _assert_launched_shapes_compared(before)
     assert np.array_equal(np.stack(live.trajectory.poses), np.stack(single.trajectory.poses))
     strip = lambda d: {k: v for k, v in d.to_dict().items() if k != "correlation_id"}  # noqa: E731
     assert [strip(d) for d in diags] == [strip(d) for d in single_diags]
@@ -599,34 +780,41 @@ def test_run_stream_async_on_the_card_equals_process_frame(cuda, tmp_path):
     assert not report["events"]
 
 
-def test_runner_native_ingestion_on_the_card_equals_stream(cuda, tmp_path):
-    """The runner's ``native`` mode on the card: the port's C++ library
-    builds on the card's host, its frame loader delivers the frames of a
-    small KITTI layout in order, and the trajectory and diagnostics equal
-    the ``stream`` mode's with the numpy decoder bit for bit."""
-    import json
-
+@pytest.mark.parametrize("mode", ["native", "async"])
+def test_runner_ingestion_on_the_card_equals_stream(cuda, tmp_path, mode):
+    """The runner's ``native`` mode (the port's C++ library built on the
+    card's host, its frame loader) and its ``async`` mode (the decode
+    pipeline) on the card over a small KITTI layout of PNG files: the
+    trajectory and diagnostics equal the ``stream`` mode's with the numpy
+    decoder bit for bit, the ingestion report counts every frame decoded,
+    and the kernels launch only at compared shapes."""
     from mvslam_tpu_torch import native
     from mvslam_tpu_torch.data.bench_frames import make_frames
     from mvslam_tpu_torch.data.synthetic import write_kitti_sequence
     from mvslam_tpu_torch.slam.runner import run_kitti_sequence
 
-    assert native.native_available(), "the native host library did not build"
+    if mode == "native":
+        assert native.native_available(), "the native host library did not build"
     frames = [f.astype(np.uint8) for f in make_frames(10)]
     root, _ = write_kitti_sequence(tmp_path / "kitti", frames, np.zeros((10, 3)), (718.856, 718.856, 607.19, 185.22))
     runs = {}
-    for mode in ("stream", "native"):
-        with pytest.MonkeyPatch.context() as m:
-            if mode == "stream":
-                m.setenv("MVSLAM_NATIVE_DECODE", "0")  # the numpy decoder: independent of the C++ one
-            runs[mode] = run_kitti_sequence(root, run_id=mode, output_root=tmp_path / mode, ingestion=mode, device=cuda)
+    for m in ("stream", mode):
+        with pytest.MonkeyPatch.context() as patch:
+            if m == "stream":
+                patch.setenv("MVSLAM_NATIVE_DECODE", "0")  # the numpy decoder: independent of the C++ one
+            before = _launch_counts()
+            runs[m] = run_kitti_sequence(root, run_id=m, output_root=tmp_path / m, ingestion=m, device=cuda)
+            _assert_launched_shapes_compared(before)
     traj = {m: np.load(r.trajectory_path)["poses"] for m, r in runs.items()}
-    assert traj["native"].shape == (10, 4, 4) and np.array_equal(traj["native"], traj["stream"])
+    assert traj[mode].shape == (10, 4, 4) and np.array_equal(traj[mode], traj["stream"])
     diags = {m: json.loads((r.run_dir / "diagnostics" / "frame_diagnostics.json").read_text()) for m, r in runs.items()}
     strip = lambda rows: [{k: v for k, v in d.items() if k != "correlation_id"} for d in rows]  # noqa: E731
-    assert strip(diags["native"]) == strip(diags["stream"])
-    report = json.loads((runs["native"].run_dir / "reports" / "ingestion_report.json").read_text())
-    assert report["backend"] == "native" and report["decoded"] == 10 and report["failed"] == 0
+    assert strip(diags[mode]) == strip(diags["stream"])
+    report = json.loads((runs[mode].run_dir / "reports" / "ingestion_report.json").read_text())
+    assert report["decoded"] == 10 and report["failed"] == 0
+    if mode == "native":
+        assert set(report) == {"backend", "decoded", "failed", "consumer_wait_s", "worker_wait_s"}
+        assert report["backend"] == "native"
 
 
 def _two_view_samples(k, n, seed=0, outliers=False):
@@ -761,9 +949,14 @@ def test_sharded_ransac_on_the_card_bit_equal_across_logical_sizes(cuda):
 
 def test_meshed_superwindow_on_the_card_equals_unsharded(cuda):
     """``track_superwindow_meshed`` over 1 + 16 bench frames at (370, 1226)
-    on logical meshes of 2 and 4 slots: features, matches, counts and
+    on logical meshes of 1, 2, 4 and 8 slots: features, matches, counts and
     ``use_essential`` bit-equal to the unsharded pinned run, poses within
-    1e-3; both kernels launched at 8 and 4 frames."""
+    1e-3, K1 launched once a slot (16, 8, 4 and 2 frames); two runs at 4
+    slots bit-equal. The default configuration's unsharded superwindow
+    (pinned RANSAC at its 512 matches, the H transfer votes a matvec and a
+    sum where the meshed run takes pinned products) equals the meshed run
+    at 1 slot in features, matches, model choice, inliers, scores, support
+    share and rotation on every frame."""
     from mvslam_tpu_torch.core import prng
     from mvslam_tpu_torch.core.sharding import Mesh
     from mvslam_tpu_torch.data.bench_frames import make_frames
@@ -779,10 +972,11 @@ def test_meshed_superwindow_on_the_card_equals_unsharded(cuda):
     key = prng.key(0, cuda)
     prev = tracking.bootstrap_frame(frames[0], fc)
     last_ref, ref = tracking.track_superwindow(key, prev, frames[1:], K, fc, pc, window=16, start_index=1)
-    for size in (2, 4):
+    runs = {}
+    for size in (1, 2, 4, 8):
         k1 = cuda_fast.fast_detect.launches
-        last, got = track_superwindow_meshed(Mesh([cuda] * size, ("data",)), key, prev, frames[1:], K, fc, pc,
-                                             window=16, start_index=1)
+        runs[size] = last, got = track_superwindow_meshed(Mesh([cuda] * size, ("data",)), key, prev, frames[1:], K,
+                                                          fc, pc, window=16, start_index=1)
         assert cuda_fast.fast_detect.launches - k1 == size
         for a, b in zip(last, last_ref):
             assert torch.equal(a, b)
@@ -791,6 +985,122 @@ def test_meshed_superwindow_on_the_card_equals_unsharded(cuda):
         assert torch.equal(got.scalars_packed[..., 12:13], ref.scalars_packed[..., 12:13])
         assert torch.equal(got.scalars_packed[..., 23:25], ref.scalars_packed[..., 23:25])
         assert float((got.scalars_packed[..., :12] - ref.scalars_packed[..., :12]).abs().max()) < 1e-3
+    last, again = track_superwindow_meshed(Mesh([cuda] * 4, ("data",)), key, prev, frames[1:], K, fc, pc,
+                                           window=16, start_index=1)
+    _assert_tracks_equal(again, runs[4][1])
+    for a, b in zip(last, runs[4][0]):
+        assert torch.equal(a, b)
+    _, default = tracking.track_superwindow(key, prev, frames[1:], K, fc, RobustPoseEstimatorConfig(num_hypotheses=512),
+                                            window=16, start_index=1)
+    meshed = runs[1][1]
+    assert torch.equal(default.features_packed.view(torch.int32), meshed.features_packed.view(torch.int32))
+    assert torch.equal(default.match_mask, meshed.match_mask)
+    for field in ("use_essential", "num_inliers", "inliers", "essential_score", "homography_score",
+                  "homography_share", "rotation"):
+        assert torch.equal(getattr(default.pose, field), getattr(meshed.pose, field)), field
+
+
+def test_batched_track_pairs_on_the_card_equal_across_logical_sizes(cuda):
+    """``batched_track_pairs`` on 8 consecutive bench-frame pairs at (370,
+    1226), 2,048 features, 512 matches and 512 hypotheses, over logical
+    meshes of 1, 2, 4 and 8 slots: features, match masks, counts and
+    matched points bit-equal to the run at 1 slot, poses within 1e-3, every
+    pair matched, and every launch at a compared shape."""
+    from mvslam_tpu_torch.core.sharding import Mesh
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.parallel import batched_track_pairs
+
+    frames = torch.from_numpy(np.stack([f.astype(np.uint8) for f in make_frames(9)])).to(cuda)
+    fc = FeaturePipelineConfig(num_features=2048, max_matches=512)
+    pc = RobustPoseEstimatorConfig(num_hypotheses=512)
+    K = torch.tensor([[718.856, 0.0, 607.19], [0.0, 718.856, 185.22], [0.0, 0.0, 1.0]], device=cuda)
+    before = _launch_counts()
+    runs = {size: batched_track_pairs(Mesh([cuda] * size, ("data",)), frames[:8], frames[1:], K, fc, pc)
+            for size in (1, 2, 4, 8)}
+    _assert_launched_shapes_compared(before)
+    base_feats, base = runs[1]
+    for size, (feats, track) in runs.items():
+        for a, b in zip(feats, base_feats):
+            assert torch.equal(a, b), size
+        for name in ("match_mask", "num_matches", "num_features", "matched_p1", "matched_p2"):
+            assert torch.equal(getattr(track, name), getattr(base, name)), (size, name)
+        assert float((track.scalars_packed[..., :12] - base.scalars_packed[..., :12]).abs().max()) <= 1e-3, size
+        assert int((track.num_matches > 0).sum()) == 8, size
+
+
+def test_sharded_ba_on_the_card_equals_unsharded(cuda):
+    """``run_bundle_adjustment_sharded`` on a window of 5 poses and 1,024
+    points seen by every pose, over logical meshes of 1, 2 and 4 slots,
+    against the unsharded card run: poses within 1e-4, points within 1e-3,
+    the final cost within 1e-2 of max(1, cost), the conditioning gate not
+    tripped; two runs at 4 slots bit-equal."""
+    from mvslam_tpu_torch.backend.bundle_adjustment import BundleAdjustmentConfig, run_bundle_adjustment
+    from mvslam_tpu_torch.core.sharding import Mesh
+    from mvslam_tpu_torch.parallel import run_bundle_adjustment_sharded
+
+    poses, pts, obs, K = _ba_problem(P=1024)
+    config = BundleAdjustmentConfig(max_iterations=10)
+    ref = run_bundle_adjustment(poses, pts, obs, K, config, device=cuda)
+    assert not ref.diagnostics.conditioning_tripped
+    assert ref.diagnostics.final_cost < ref.diagnostics.initial_cost
+    for size in (1, 2, 4):
+        res = run_bundle_adjustment_sharded(Mesh([cuda] * size, ("data",)), poses, pts, obs, K, config)
+        assert not res.diagnostics.conditioning_tripped, size
+        np.testing.assert_allclose(res.poses, ref.poses, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(res.points, ref.points, rtol=0, atol=1e-3)
+        assert res.diagnostics.final_cost == pytest.approx(ref.diagnostics.final_cost, rel=1e-2, abs=1e-2)
+    again = run_bundle_adjustment_sharded(Mesh([cuda] * 4, ("data",)), poses, pts, obs, K, config)
+    assert np.array_equal(again.poses, res.poses) and np.array_equal(again.points, res.points)
+
+
+def test_sharded_pose_graph_on_the_card_equals_unsharded(cuda):
+    """``_lap_graph``'s 1,000 SE3 poses (a dense 6,000 x 6,000 system), 15
+    iterations: the unsharded card solve by Cholesky and by CG is finite
+    and lowers the cost and the last pose's position error; by Cholesky,
+    ``solve_problem_sharded`` over logical meshes of 1, 2 and 4 slots gives
+    x within 1e-3 of it (positions on a 20-unit circle) and the final cost
+    within 1e-3 of max(1, cost), and two runs at each size bit-equal."""
+    from mvslam_tpu_torch.backend.solvers import SolverConfig, solve_problem
+    from mvslam_tpu_torch.core.sharding import Mesh
+    from mvslam_tpu_torch.geometry import lie_np
+    from mvslam_tpu_torch.parallel import solve_problem_sharded
+
+    graph, truth = _lap_graph()
+    problem = graph._build_graph().build_problem(device=cuda)
+    before = np.linalg.norm(graph.poses()[-1][:3, 3] - truth[-1][:3, 3])
+    for method in ("cg", "cholesky"):
+        config = SolverConfig(max_iterations=15, damping=1e-4, method=method)
+        ref = solve_problem(problem, config)
+        after = np.linalg.norm(lie_np.se3_params_to_matrix(ref.x[-1])[:3, 3] - truth[-1][:3, 3])
+        assert np.isfinite(ref.x).all() and ref.final_cost < ref.initial_cost and after < before, method
+    for size in (1, 2, 4):
+        res, again = (solve_problem_sharded(Mesh([cuda] * size, ("data",)), problem, config) for _ in range(2))
+        assert np.isfinite(res.x).all() and np.abs(res.x - ref.x).max() <= 1e-3, size
+        assert res.final_cost == pytest.approx(ref.final_cost, rel=1e-3, abs=1e-3), size
+        assert np.array_equal(again.x, res.x), size
+
+
+def test_meshed_index_on_the_card_equals_the_host_ranking(cuda):
+    """``DeviceBoWIndex`` over a logical mesh of 4 slots on 50,000
+    histograms of 256 words: its top-16 held to the float64 host ranking
+    as the unsharded index is; grown by ``add`` from 1,024 rows to 4,096,
+    its rows bit-equal to a bulk load's and its answers the bulk load's."""
+    from mvslam_tpu_torch.core.sharding import Mesh
+    from mvslam_tpu_torch.loopclosure.device_index import DeviceBoWIndex
+
+    hist, ids, planted, queries = _index_scene(50_000, 256, num_queries=100)
+    mesh = Mesh([cuda] * 4, ("data",))
+    _assert_index_is_the_host_ranking(DeviceBoWIndex.from_histograms(ids, hist, mesh=mesh), hist, planted, queries)
+    grown = DeviceBoWIndex(256, 1024, mesh=mesh)
+    for i, row in zip(ids[:4096], hist[:4096]):
+        grown.add(i, row)
+    bulk = DeviceBoWIndex.from_histograms(ids[:4096], hist[:4096], mesh=mesh)
+    assert grown.capacity == 4096 and torch.equal(grown._buf, bulk._buf)
+    for q in queries:
+        a, b = grown.topk(q, k=16), bulk.topk(q, k=16)
+        assert [i for i, _ in a] == [i for i, _ in b] and max(abs(x[1] - y[1]) for x, y in zip(a, b)) <= 1e-6
 
 
 def _pair_inputs(cuda, batch, num_features):
@@ -813,12 +1123,9 @@ def _pair_inputs(cuda, batch, num_features):
 
 
 def _kitti_pose_config():
-    import json
-    from pathlib import Path
-
     from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
 
-    path = Path(__file__).resolve().parents[1] / "configs" / "pipeline" / "kitti_default.json"
+    path = REPO / "configs" / "pipeline" / "kitti_default.json"
     return RobustPoseEstimatorConfig(**json.loads(path.read_text())["pose"])
 
 
@@ -901,7 +1208,10 @@ def test_superwindow_and_run_sequence_replay_as_eager(cuda, tmp_path, monkeypatc
     """A six-window ``track_superwindow`` (1 + 96 bench frames, 2,048
     features, 512 matches) and two consecutive 96-frame dispatches of
     ``run_sequence`` give with the graphs what the eager stages give, in
-    every leaf and every diagnostic; every window replays (one capture)."""
+    every leaf and every diagnostic; every window replays (one capture).
+    The superwindow matches every frame, with rotations orthonormal,
+    translations of unit length and the median match displacement the
+    frames' own 6 px shift."""
     from mvslam_tpu_torch.core import prng
     from mvslam_tpu_torch.data.bench_frames import make_frames
     from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
@@ -930,6 +1240,12 @@ def test_superwindow_and_run_sequence_replay_as_eager(cuda, tmp_path, monkeypatc
         return last, track, np.stack(system.trajectory.poses), [strip(d) for d in diags], system.telemetry.events()
 
     last, graphed, poses, diags, events = runs()
+    scalars = tracking.pull_scalars(graphed)
+    assert (scalars["num_matches"] > 0).all()
+    rot, trans = scalars["rotation"].reshape(-1, 3, 3), scalars["translation"].reshape(-1, 3)
+    assert np.abs(rot @ np.swapaxes(rot, -1, -2) - np.eye(3)).max() < 1e-3
+    assert np.abs(np.linalg.norm(trans, axis=-1) - 1.0).max() < 1e-3
+    assert np.abs(scalars["median_displacement_px"] - 6.0).max() < 0.5  # make_frames slides its texture 6 px a frame
     names = [e.name for e in events]
     assert names.count("pair_graph_replay") == names.count("pose.device") == 2 * 6
     with monkeypatch.context() as m:
@@ -942,3 +1258,174 @@ def test_superwindow_and_run_sequence_replay_as_eager(cuda, tmp_path, monkeypatc
     assert np.array_equal(poses, poses_e)
     assert diags == diags_e
     assert sum(d["pose_success"] for d in diags) >= 180
+
+
+def test_native_matcher_equals_the_cards_matcher(cuda):
+    """The C++ host matcher on two bench frames' 2,048 descriptors from the
+    card's detector: each row's best column, best and second distances,
+    each column's best row and the cross-checked set bit-equal to the
+    card's ``match_descriptors``."""
+    from mvslam_tpu_torch import native
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.ops.hamming import (
+        MatchConfig,
+        hamming_distance_matrix,
+        match_descriptors,
+        match_descriptors_host,
+    )
+    from mvslam_tpu_torch.slam.tracking import bootstrap_frame
+
+    assert native.native_available(), "the native host library did not build"
+    cfg = FeaturePipelineConfig(num_features=2048, max_matches=512)
+    a, b = (bootstrap_frame(torch.from_numpy(f.astype(np.uint8)).to(cuda), cfg) for f in make_frames(2))
+    words = [np.ascontiguousarray(x.cpu().numpy()) for x in (a.descriptors, a.valid, b.descriptors, b.valid)]
+    host_in = (words[0].view(np.uint32), words[1], words[2].view(np.uint32), words[3])
+    best_idx, best, second, col_best = native.hamming_match(*host_in)
+    match_cfg = MatchConfig(cross_check=True)
+    card = match_descriptors(a.descriptors, a.valid, b.descriptors, b.valid, match_cfg)
+    d = hamming_distance_matrix(a.descriptors, b.descriptors)
+    d = torch.where(b.valid[None, :], d, torch.tensor(1e9, device=cuda))
+    d = torch.where(a.valid[:, None], d, torch.tensor(1e9, device=cuda))
+    assert int(card.valid.sum()) > 500
+    assert np.array_equal(best_idx, card.indices.cpu().numpy())
+    assert np.array_equal(best, card.distances.cpu().numpy())
+    assert np.array_equal(second, card.second_distances.cpu().numpy())
+    assert np.array_equal(col_best, torch.argmin(d, dim=0).cpu().numpy())
+    assert np.array_equal(match_descriptors_host(*host_in, match_cfg).valid.numpy(), card.valid.cpu().numpy())
+
+
+def _out_and_back(num_frames):
+    """Out along x 0.25 a frame to the middle frame, then back over the
+    same places: frame q revisits frame (num_frames - 1) - q."""
+    half = (num_frames - 1) // 2
+    return lambda i: (np.eye(3), np.array([0.25 * (i if i <= half else 2 * half - i), 0.0, 0.0]))
+
+
+def _offline_config(root, gt_path, output_root, run_id, loops):
+    """The offline benchmark's ``run_visual_slam`` settings: seed 3, loop
+    gap 12, similarity 0.7, 25 inliers, ground truth given, all else
+    default (window BA, relocalization and snapshots on)."""
+    from mvslam_tpu_torch.slam.offline import SLAMRunConfig
+
+    return SLAMRunConfig(
+        input_path=root, input_kind="kitti", sequence="00", output_root=output_root, run_id=run_id, seed=3,
+        ground_truth_path=gt_path, loop_min_frame_gap=12, loop_similarity_threshold=0.7, loop_min_inliers=25,
+        enable_loop_closure=loops,
+    )
+
+
+def test_run_visual_slam_from_png_files_on_the_card(cuda, tmp_path):
+    """The offline CLI's ``run_visual_slam`` on the card, reading PNG files:
+    the offline benchmark's out-and-back revisit (1 + 28 frames, 400 quads,
+    noise 6, seed 2) at 1226x370 as a KITTI layout, twice with loop closure
+    and once without. At most 3 frames unposed in each run, a loop
+    accepted, ATE with loops at most twice ATE without and both under 0.05
+    (the JAX package's own CPU run of this scene reads 0.0345 and 0.0225);
+    the two equal runs' summaries and trajectories bit-equal; the persisted
+    snapshot reloads with its digest; the kernels launch only at compared
+    shapes."""
+    from mvslam_tpu_torch.data.synthetic import render_scene, write_kitti_sequence
+    from mvslam_tpu_torch.loopclosure.persistent_map import load_map_snapshot
+    from mvslam_tpu_torch.slam.offline import run_visual_slam
+
+    frames, gt, intrinsics, _ = render_scene(num_frames=29, h=370, w=1226, seed=2, n_pts=400, noise=6.0,
+                                             traj_fn=_out_and_back(29))
+    root, gt_path = write_kitti_sequence(tmp_path / "kitti", frames, gt, intrinsics)
+    before = _launch_counts()
+    runs = []
+    for name, loops in (("loops", True), ("loops_again", True), ("no_loops", False)):
+        summary = run_visual_slam(_offline_config(root, gt_path, tmp_path / name, "offline", loops), device=cuda)
+        run_dir = Path(summary["run_dir"])
+        diags = json.loads((run_dir / "diagnostics" / "frame_diagnostics.json").read_text())
+        assert len(diags) == 29 and sum(bool(d["pose_success"]) for d in diags[1:]) >= 28 - 3, name
+        runs.append((summary, run_dir))
+    _assert_launched_shapes_compared(before)
+    (first, a), (_, b), (plain, _) = runs
+    assert len(first["loops_accepted"]) >= 1
+    ate, ate_plain = first["metrics"]["ATE_RMSE"], plain["metrics"]["ATE_RMSE"]
+    assert ate <= 2.0 * ate_plain and max(ate, ate_plain) < 0.05, (ate, ate_plain)
+    assert (a / "offline_summary.json").read_bytes() == (b / "offline_summary.json").read_bytes()
+    ta, tb = (np.load(r / "trajectories" / "estimated.npz") for r in (a, b))
+    assert sorted(ta.files) == sorted(tb.files) and all(np.array_equal(ta[k], tb[k]) for k in ta.files)
+    maps = a / "maps"
+    snapshot = load_map_snapshot(maps / "map_snapshot_arrays.npz", maps / "map_snapshot_metadata.json")
+    assert snapshot.digest() == json.loads((maps / "map_snapshot_metadata.json").read_text())["digest"]
+    assert len(snapshot.keyframes) == first["keyframes"]
+
+
+def _yaw(angle):
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+
+
+def _accuracy_tracking(name, root, cuda):
+    """``benchmarks/benchmark_accuracy_scenes.py``'s tracking scene ``name``
+    through ``SLAMSystem`` with that script's settings (seed 3, 512
+    features, 256 matches, 256 hypotheses, a fixed 2 px threshold,
+    ``min_translation=0.05`` where it sets it): (ATE, RPE)."""
+    from mvslam_tpu_torch.backend.keyframes import KeyframeConfig
+    from mvslam_tpu_torch.data.synthetic import render_scene
+    from mvslam_tpu_torch.eval.trajectory import compute_additional_metrics
+    from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig
+    from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    scenes = {  # render_scene's defaults: 10 frames, 240x320
+        "straight": (dict(), 0.05),
+        "yaw_arc": (dict(traj_fn=lambda i: (_yaw(0.03 * i), np.array([0.25 * i, 0.0, 0.05 * i]))), None),
+        "noisy_arc": (dict(num_frames=14, traj_fn=lambda i: (_yaw(0.02 * i), np.array([0.25 * i, 0.0, 0.05 * i])),
+                           noise=5.0, seed=11), 0.05),
+    }
+    kwargs, min_translation = scenes[name]
+    frames, gt, (fx, fy, cx, cy), _ = render_scene(**kwargs)
+    keyframe = {} if min_translation is None else {"keyframe": KeyframeConfig(min_translation=min_translation)}
+    system = SLAMSystem(
+        SLAMSystemConfig(
+            run_id=f"accuracy_{name}", output_root=root, seed=3, fx=fx, fy=fy, cx=cx, cy=cy,
+            feature=FeaturePipelineConfig(num_features=512, max_matches=256),
+            pose=RobustPoseEstimatorConfig(num_hypotheses=256, adaptive_threshold=False, essential_threshold_px=2.0),
+            **keyframe,
+        ),
+        device=cuda,
+    )
+    system.run_sequence(frames)
+    metrics = compute_additional_metrics(np.stack(system.trajectory.poses)[:, :3, 3], gt)
+    return float(metrics["ATE_RMSE"]), float(metrics["RPE_RMSE"])
+
+
+def test_accuracy_scenes_on_the_card_pass_the_gate(cuda, tmp_path):
+    """The four scenes of ``benchmarks/benchmark_accuracy_scenes.py`` (it
+    imports the JAX package, so its scenes and settings are restated here)
+    through the port on the card: the straight, yawing and noisy arcs
+    through ``SLAMSystem``, and the 1 + 28-frame out-and-back revisit at
+    240x320 (noise 6, seed 2) through ``run_visual_slam`` with loops off and
+    on. Its ten metrics, under the script's names, pass ``compare_metrics``
+    against ``baselines/accuracy_scenes.json`` under
+    ``configs/evaluation/accuracy_gate.json``, both read as they are; the
+    kernels launch only at compared shapes."""
+    from mvslam_tpu_torch.data.synthetic import render_scene, write_kitti_sequence
+    from mvslam_tpu_torch.eval.baselines import BaselineStore, compare_metrics
+    from mvslam_tpu_torch.slam.offline import run_visual_slam
+
+    before = _launch_counts()
+    metrics = {}
+    for name in ("straight", "yaw_arc", "noisy_arc"):
+        metrics[f"accuracy_{name}_ate_rmse"], metrics[f"accuracy_{name}_rpe_rmse"] = _accuracy_tracking(
+            name, tmp_path, cuda)
+    frames, gt, intrinsics, _ = render_scene(num_frames=29, traj_fn=_out_and_back(29), noise=6.0, seed=2)
+    root, gt_path = write_kitti_sequence(tmp_path / "kitti_oab", frames, gt, intrinsics)
+    for tag, loops in (("off", False), ("on", True)):
+        run = run_visual_slam(_offline_config(root, gt_path, tmp_path / "runs_oab", f"loop_{tag}", loops), device=cuda)
+        metrics[f"accuracy_oab_loop_{tag}_ate_rmse"] = float(run["metrics"]["ATE_RMSE"])
+    _assert_launched_shapes_compared(before)
+    metrics["accuracy_oab_loop_ate_ratio"] = metrics["accuracy_oab_loop_on_ate_rmse"] / max(
+        metrics["accuracy_oab_loop_off_ate_rmse"], 1e-12)
+    ates = [metrics[f"accuracy_{name}_ate_rmse"] for name in ("straight", "yaw_arc", "noisy_arc", "oab_loop_on")]
+    metrics["accuracy_mean_ate_rmse"] = sum(ates) / len(ates)
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    gate = json.loads((REPO / "configs" / "evaluation" / "accuracy_gate.json").read_text())
+    thresholds = next(b for b in gate["benchmarks"] if b["name"] == "accuracy_scenes")["metric_thresholds"]
+    baseline = BaselineStore(REPO / "baselines" / "accuracy_scenes.json").load_baseline("accuracy_scenes")
+    report = compare_metrics(metrics, baseline, thresholds)
+    assert report.status == "pass", (metrics, report.to_dict())

@@ -273,11 +273,11 @@ def test_bench_frames_equal_reference(num_frames, seed):
         assert a.dtype == b.dtype and a.shape == (370, 1226) and np.array_equal(a, b)
 
 
-def test_chip_smoke_imports_nothing_of_the_reference():
-    """Every import in ``chip_smoke.py``, nested ones included, is of the
-    port or of third-party packages: no jax, no ``mvslam_tpu``, no
-    ``bench`` (the machine with the card has none of them)."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def test_card_tests_import_nothing_of_the_reference():
+    """Every import in ``tests/test_torch_cuda.py``, nested ones included,
+    is of the port or of third-party packages: no jax, no ``mvslam_tpu``,
+    no ``bench`` (the machine with the card has none of them)."""
+    tree = ast.parse((REPO / "tests" / "test_torch_cuda.py").read_text())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
