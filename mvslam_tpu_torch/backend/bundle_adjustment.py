@@ -22,6 +22,20 @@ observations over a mesh: each slot linearizes its block and assembles
 partial normal equations with tables built over that block; the partials
 are added in slot order on slot 0's device, where the Schur solve runs.
 
+On a CUDA device the unsharded solve of a keyframe window is a few
+thousand small operations whose host launches set its pace, so it is
+captured once per signature into a CUDA graph (``BA_GRAPHS``, a
+:class:`~mvslam_tpu_torch.core.graphs.GraphCache`) and replayed. Its
+shapes are then fixed by what a window can hold (:func:`window_shapes`:
+the window length and the pair gate's match count), not by the window's
+counts, so that a live stream meets one signature per window length and
+captures them all before its first frame
+(:meth:`WindowBundleAdjuster.capture_graphs`). Where no capture may run
+and the signature is new, the same fixed shapes are solved eagerly: the
+same kernels, so the same bits. The conditioning check's ``eigvalsh``,
+which may read its error flag on the host, runs eagerly after the replay on
+the sub-block the graph saved.
+
 ``WindowBundleAdjuster`` builds the observations from a keyframe window:
 consecutive pairs are matched (cross-checked Hamming) and RANSAC-gated on
 the adjuster's device (on the CPU the matching runs in the native
@@ -44,6 +58,7 @@ from torch.func import jacfwd, vmap
 from mvslam_tpu_torch.backend.segments import segment_sum, segment_table
 from mvslam_tpu_torch.backend.solvers import _solve_pos
 from mvslam_tpu_torch.core import prng
+from mvslam_tpu_torch.core.graphs import GraphCache, capture, signature, static_copies
 from mvslam_tpu_torch.core.sharding import NamedSharding, add_in_order, blocks
 from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder, timed_event
 from mvslam_tpu_torch.geometry.lie import se3_matrix, so3_exp, so3_log
@@ -107,15 +122,57 @@ class BATables(NamedTuple):
     pair: torch.Tensor
 
 
-def ba_tables(obs_pose, obs_point, obs_mask, num_poses: int, num_points: int, device=None) -> BATables:
-    """Tables for :func:`_ba_core` from the host's observation arrays."""
+def ba_tables(obs_pose, obs_point, obs_mask, num_poses: int, num_points: int, device=None,
+              widths=(None, None, None)) -> BATables:
+    """Tables for :func:`_ba_core` from the host's observation arrays;
+    ``widths`` fixes the pose, point and pair tables' widths (default: the
+    largest segment's)."""
     obs_pose = np.asarray(obs_pose, np.int64)
     obs_point = np.asarray(obs_point, np.int64)
     return BATables(
-        segment_table(obs_pose, num_poses, device, keep=obs_mask),
-        segment_table(obs_point, num_points, device, keep=obs_mask),
-        segment_table(obs_pose * num_points + obs_point, num_poses * num_points, device, keep=obs_mask),
+        segment_table(obs_pose, num_poses, device, keep=obs_mask, width=widths[0]),
+        segment_table(obs_point, num_points, device, keep=obs_mask, width=widths[1]),
+        segment_table(obs_pose * num_points + obs_point, num_poses * num_points, device, keep=obs_mask,
+                      width=widths[2]),
     )
+
+
+def window_shapes(num_poses: int, obs_pose, obs_point, num_points: int):
+    """The fixed shapes of a window of ``num_poses`` keyframes whose
+    observations come from the pair gate: (observation budget, point
+    budget, the pose, point and pair tables' widths); None where these
+    observations of ``num_points`` points exceed them.
+
+    Each gated match of a consecutive pair (at most M = ``_PAIR_GATE_M``,
+    one-to-one) extends a track by one observation or starts one with two:
+    a window of W holds at most 2·M·(W−1) observations of M·(W−1) points;
+    a pose is seen at most M times from each side, a point at most once by
+    each pose."""
+    M, W = _PAIR_GATE_M, num_poses
+    budget, pbudget, widths = 2 * M * (W - 1), M * (W - 1), (2 * M, W, 1)
+    obs_pose = np.asarray(obs_pose, np.int64)
+    obs_point = np.asarray(obs_point, np.int64)
+    if len(obs_pose) > budget or num_points > pbudget:
+        return None
+    counts = (np.bincount(obs_pose), np.bincount(obs_point), np.bincount(obs_pose * num_points + obs_point))
+    if any(int(c.max(initial=0)) > w for c, w in zip(counts, widths)):
+        return None
+    return budget, pbudget, widths
+
+
+def _free_coordinates(num_poses: int, config: "BundleAdjustmentConfig", device, dtype):
+    """The (W, 6) 0/1 mask of the solved pose coordinates (the gauge fixes
+    the first pose and the second's translation) and the flat indices of
+    the free ones: the conditioning check decomposes exactly that
+    sub-block of the Schur system. Built by host copies: outside a
+    capture."""
+    free_np = np.ones((num_poses, 6), bool)
+    if config.fix_first_pose:
+        free_np[0] = False
+    if config.fix_second_translation and num_poses > 1:
+        free_np[1, :3] = False
+    free_idx = torch.from_numpy(np.flatnonzero(free_np.reshape(-1))).to(device)
+    return torch.as_tensor(free_np, dtype=dtype, device=device), free_idx
 
 
 def _pose_params(T: torch.Tensor) -> torch.Tensor:
@@ -154,14 +211,17 @@ class ObservationBlock(NamedTuple):
 
 
 def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config: BundleAdjustmentConfig,
-             num_poses: int, tables: BATables, shards: Optional[List[ObservationBlock]] = None):
-    """The LM iterations on the inputs' device. Returns (pose params,
-    points, initial cost, final cost, eig_min, eig_max), the eigenvalues
-    those of the data term's reduced system at the first linearization.
+             num_poses: int, tables: BATables, shards: Optional[List[ObservationBlock]], free):
+    """The LM iterations on the inputs' device, with no host read (a graph
+    captures them). Returns float32 ``[init, final, poses(W·16),
+    points(P·3)]`` and the free sub-block of the reduced system at the
+    first linearization (the data term's plus (w² + λ)·I), which
+    :func:`_with_conditioning` decomposes.
 
-    ``shards`` (default: the one block of all observations on the inputs'
+    ``shards`` (None: the one block of all observations on the inputs'
     device): per-slot blocks whose linearizations, costs and partial
-    normal equations are added in slot order on the inputs' device."""
+    normal equations are added in slot order on the inputs' device.
+    ``free``: :func:`_free_coordinates` on the inputs' device."""
     if shards is None:
         shards = [ObservationBlock(obs_pose, obs_point, obs_uv, obs_mask, K, tables)]
     W = num_poses
@@ -169,15 +229,7 @@ def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, co
     dtype, device = pose_params0.dtype, pose_params0.device
     delta = torch.full((), config.huber_delta_px, dtype=dtype, device=device)  # a fill, not a host copy
     d2 = delta * delta
-    free_np = np.ones((W, 6), bool)
-    if config.fix_first_pose:
-        free_np[0] = False
-    if config.fix_second_translation and W > 1:
-        free_np[1, :3] = False
-    # The free coordinates of the Schur system: the conditioning check
-    # decomposes exactly that sub-block.
-    free_idx = torch.from_numpy(np.flatnonzero(free_np.reshape(-1))).to(device)
-    pose_free = torch.as_tensor(free_np, dtype=dtype, device=device)
+    pose_free, free_idx = free
     free = pose_free.reshape(-1)
     prior_w2 = torch.full((), config.pose_prior_weight**2, dtype=dtype, device=device)
     eye3 = torch.eye(3, dtype=dtype, device=device)
@@ -243,12 +295,8 @@ def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, co
         S_dense = S.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
         S_dense = S_dense * free[:, None] * free[None, :] + torch.diag(1.0 - free)
         if it == 0:
-            # Conditioning of the data term's reduced system: on the free
-            # coordinates the prior and the damping add (w² + λ)·I. Only the
-            # first linearization is gated, so only it is decomposed.
-            eigs = torch.linalg.eigvalsh(S_dense[free_idx][:, free_idx])
-            eig_min = eigs[0] - (prior_w2 + lam)
-            eig_max = eigs[-1] - (prior_w2 + lam)
+            # Only the first linearization is gated, so only it is kept.
+            S0 = S_dense[free_idx][:, free_idx]
         dp = _solve_pos(S_dense, rhs.reshape(-1) * free).reshape(W, 6) * pose_free
         dx = torch.einsum("pij,pj->pi", C_inv, -gx - torch.einsum("wpij,wi->pj", E, dp))
 
@@ -261,18 +309,107 @@ def _ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, co
         pts = torch.where(improved, pts_new, pts)
         lam = torch.where(improved, torch.clamp_min(lam * 0.3, config.damping), torch.clamp_max(lam * 10.0, 1e6))
         old_cost = torch.where(improved, new_cost, old_cost)
-    return pp, pts, init_cost, old_cost, eig_min, eig_max
+    packed = torch.cat([torch.stack([init_cost, old_cost]), _params_to_pose(pp).reshape(-1), pts.reshape(-1)])
+    return packed.to(torch.float32), S0
+
+
+def _with_conditioning(packed, S0, config: BundleAdjustmentConfig) -> torch.Tensor:
+    """:func:`_ba_core`'s outputs as ONE float32 tensor: ``[init, final,
+    eig_min, eig_max, poses(W·16), points(P·3)]``, the eigenvalues those of
+    the data term's reduced system at the first linearization (on the free
+    coordinates the prior and the damping add (w² + λ)·I). Eager:
+    ``eigvalsh`` may read its error flag on the host."""
+    eigs = torch.linalg.eigvalsh(S0)
+
+    def fill(value):
+        return torch.full((), value, dtype=S0.dtype, device=S0.device)
+
+    shift = fill(config.pose_prior_weight**2) + fill(config.damping)
+    eig = torch.stack([eigs[0] - shift, eigs[-1] - shift]).to(torch.float32)
+    return torch.cat([packed[:2], eig, packed[2:]])
 
 
 def _ba_core_packed(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables,
                     shards=None):
     """:func:`_ba_core` with everything the host needs in ONE float32
     tensor: ``[init, final, eig_min, eig_max, poses(W·16), points(P·3)]``."""
-    pp, pts, init_cost, final_cost, eig_min, eig_max = _ba_core(
-        pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables, shards
+    free = _free_coordinates(num_poses, config, pose_params0.device, pose_params0.dtype)
+    return _with_conditioning(
+        *_ba_core(pose_params0, points0, obs_pose, obs_point, obs_uv, obs_mask, K, config, num_poses, tables, shards,
+                  free),
+        config,
     )
-    head = torch.stack([init_cost, final_cost, eig_min, eig_max])
-    return torch.cat([head, _params_to_pose(pp).reshape(-1), pts.reshape(-1)]).to(torch.float32)
+
+
+def _solve_window(inputs, config: BundleAdjustmentConfig, free):
+    """:func:`_ba_core` of one unsharded solve's device arrays, in
+    :func:`run_bundle_adjustment`'s order (poses, points, the four
+    observation arrays, K, the three tables): what a BA graph captures."""
+    poses, points, obs_pose, obs_point, obs_uv, obs_mask, K, *tables = inputs
+    return _ba_core(_pose_params(poses), points, obs_pose, obs_point, obs_uv, obs_mask, K, config, poses.shape[0],
+                    BATables(*tables), None, free)
+
+
+class BAGraphs(GraphCache):
+    """Per-device LRU of captured window solves: one entry a signature
+    (the inputs' fixed shapes and device, and the config), one for each
+    window length a stream meets."""
+
+    ENTRIES_PER_DEVICE = 8
+
+    def __init__(self) -> None:
+        super().__init__("ba_graph")
+
+    def solve(self, inputs, config: BundleAdjustmentConfig, recorder: Optional[RunTelemetryRecorder] = None):
+        """:func:`_ba_core_packed` of ``inputs`` (:func:`_solve_window`'s
+        order) on the host, by replay (capturing a new signature first);
+        None where a new signature may not be captured: the caller then
+        solves eagerly."""
+        return self._call(
+            inputs[0].device, signature(inputs, config), len(inputs),
+            lambda: self._capture(inputs, config), lambda entry: self._replay(entry, inputs, config), recorder,
+        )
+
+    def _capture(self, inputs, config):
+        device = inputs[0].device
+        with torch.cuda.device(device):
+            static = static_copies(inputs)
+            free = _free_coordinates(inputs[0].shape[0], config, device, torch.float32)
+        (graph,), (outputs,) = capture(device, [lambda _: _solve_window(static, config, free)])
+        return static, free, graph, outputs  # the graph reads ``free``: it lives as long as the entry
+
+    def _replay(self, entry, inputs, config):
+        static, _, graph, (packed, S0) = entry
+        with torch.cuda.device(inputs[0].device):
+            for buffer, x in zip(static, inputs):
+                buffer.copy_(x)
+            graph.replay()
+            # Fetched before the lock is released: the next replay
+            # overwrites the graph's outputs.
+            return _with_conditioning(packed, S0, config).cpu()
+
+
+# Every CUDA caller's window solves as captured graphs.
+BA_GRAPHS = BAGraphs()
+
+
+def padded_arrays(observations: List[Observation], points: np.ndarray, budget: int, pbudget: int):
+    """The host's arrays of a solve: ``obs_pose``, ``obs_point``,
+    ``obs_uv``, ``obs_mask`` of the first ``budget`` observations padded to
+    ``budget`` (padded rows masked), and the points padded to ``pbudget``."""
+    n = min(len(observations), budget)
+    obs_pose = np.zeros(budget, np.int64)
+    obs_point = np.zeros(budget, np.int64)
+    obs_uv = np.zeros((budget, 2), np.float32)
+    obs_mask = np.zeros(budget, bool)
+    for k, obs in enumerate(observations[:n]):
+        obs_pose[k] = obs.pose_index
+        obs_point[k] = obs.point_index
+        obs_uv[k] = obs.uv
+    obs_mask[:n] = True
+    points_padded = np.zeros((pbudget, 3), np.float32)
+    points_padded[: len(points)] = points
+    return obs_pose, obs_point, obs_uv, obs_mask, points_padded
 
 
 def run_bundle_adjustment(
@@ -284,9 +421,17 @@ def run_bundle_adjustment(
     max_observations: Optional[int] = None,
     device="cuda",
     observation_sharding: Optional[NamedSharding] = None,
+    recorder: Optional[RunTelemetryRecorder] = None,
 ) -> BAResult:
     """Refine window poses and points on ``device`` (the card unless the
     caller asks for the CPU); one upload, one fetch.
+
+    On a CUDA device, unsharded and with no ``max_observations``, the
+    arrays take the fixed shapes of :func:`window_shapes` where the
+    observations fit them, and the solve replays as a captured graph
+    (``BA_GRAPHS``; its spans go to ``recorder``), or runs eagerly at those
+    shapes where no capture may run. Elsewhere observations and points are
+    padded to power-of-two budgets and solved eagerly.
 
     ``observation_sharding`` splits the padded observation budget over its
     mesh (the budget must divide by the mesh size): slot s linearizes its
@@ -302,35 +447,39 @@ def run_bundle_adjustment(
     if O == 0 or P == 0 or W < 2:
         return BAResult(np.asarray(poses), np.asarray(points), BundleAdjustmentDiagnostics(0.0, 0.0, 0, True, False, 1.0))
 
-    budget = max_observations or max(64, 1 << (O - 1).bit_length())
-    obs_pose = np.zeros(budget, np.int64)
-    obs_point = np.zeros(budget, np.int64)
-    obs_uv = np.zeros((budget, 2), np.float32)
-    obs_mask = np.zeros(budget, bool)
-    for k, obs in enumerate(observations[:budget]):
-        obs_pose[k] = obs.pose_index
-        obs_point[k] = obs.point_index
-        obs_uv[k] = obs.uv
-        obs_mask[k] = True
-    # Points padded to a power-of-two budget, as the reference: padded
-    # points carry no observations, so their gradient is zero and the
-    # damping keeps their C blocks invertible.
-    pbudget = max(64, 1 << (P - 1).bit_length())
-    points_padded = np.zeros((pbudget, 3), np.float32)
-    points_padded[:P] = points
+    pose_ids = np.asarray([obs.pose_index for obs in observations], np.int64)
+    point_ids = np.asarray([obs.point_index for obs in observations], np.int64)
+    graphed = torch.device(device).type == "cuda" and observation_sharding is None and max_observations is None
+    fixed = window_shapes(W, pose_ids, point_ids, P) if graphed else None
+    if fixed is None:
+        graphed = False
+        # Power-of-two budgets, as the reference: padded points carry no
+        # observations, so their gradient is zero and the damping keeps
+        # their C blocks invertible.
+        budget = max_observations or max(64, 1 << (O - 1).bit_length())
+        pbudget = max(64, 1 << (P - 1).bit_length())
+        widths = (None, None, None)
+    else:
+        budget, pbudget, widths = fixed
+    obs_pose, obs_point, obs_uv, obs_mask, points_padded = padded_arrays(observations, points, budget, pbudget)
 
     def put(a, dtype=None, on=None):
         return torch.as_tensor(a, dtype=dtype, device=device if on is None else on)
 
     if observation_sharding is None:
-        obs_args = (put(obs_pose), put(obs_point), put(obs_uv), put(obs_mask))
-        tables, shards = ba_tables(obs_pose, obs_point, obs_mask, W, pbudget, device), None
+        inputs = (
+            put(poses, torch.float32), put(points_padded), put(obs_pose), put(obs_point), put(obs_uv), put(obs_mask),
+            put(K, torch.float32), *ba_tables(obs_pose, obs_point, obs_mask, W, pbudget, device, widths),
+        )
+        packed = BA_GRAPHS.solve(inputs, config, recorder) if graphed else None
+        if packed is None:
+            free = _free_coordinates(W, config, inputs[0].device, torch.float32)
+            packed = _with_conditioning(*_solve_window(inputs, config, free), config)
     else:
         mesh = observation_sharding.mesh
         if budget % mesh.size:
             raise ValueError(f"observation budget ({budget}) must divide by mesh size {mesh.size}")
         device = mesh.devices[0]
-        obs_args, tables = (None, None, None, None), None
         shards = [
             ObservationBlock(
                 put(obs_pose[lo:hi], on=dev), put(obs_point[lo:hi], on=dev), put(obs_uv[lo:hi], on=dev),
@@ -339,10 +488,11 @@ def run_bundle_adjustment(
             )
             for (lo, hi), dev in zip(blocks(budget, mesh.size), mesh.devices)
         ]
-    packed = _ba_core_packed(
-        _pose_params(put(poses, torch.float32)), put(points_padded), *obs_args, put(K, torch.float32),
-        config, W, tables, shards,
-    ).cpu().numpy()  # ONE device→host copy for scalars, poses and points
+        packed = _ba_core_packed(
+            _pose_params(put(poses, torch.float32)), put(points_padded), None, None, None, None,
+            put(K, torch.float32), config, W, None, shards,
+        )
+    packed = packed.cpu().numpy()  # ONE device→host copy for scalars, poses and points
     init_cost, final_cost, eig_min, eig_max = (float(x) for x in packed[:4])
     refined_poses = packed[4 : 4 + W * 16].reshape(W, 4, 4).astype(np.float64)
     refined_points = packed[4 + W * 16 :].reshape(pbudget, 3).astype(np.float64)[:P]
@@ -412,6 +562,22 @@ def _gated_pair_packed(key, a_id, b_id, descA, validA, kpA, descB, validB, kpB, 
     return torch.cat([sel.pairs[:, 0].to(torch.float32), sel.pairs[:, 1].to(torch.float32), mask.to(torch.float32)])
 
 
+def _synthetic_window(num_poses: int, K: np.ndarray, num_points: int = 16):
+    """A window of ``num_poses`` poses 0.1 apart along x seeing a grid of
+    ``num_points`` points 4-6 units ahead, exactly projected: a well-posed
+    solve at the window's fixed shapes, for capturing its graph."""
+    poses = np.stack([np.eye(4)] * num_poses)
+    poses[:, 0, 3] = 0.1 * np.arange(num_poses)
+    g = np.arange(num_points)
+    points = np.stack([(g % 4) - 1.5, (g // 4 % 4) - 1.5, 4.0 + (g % 3)], axis=1).astype(np.float64)
+    observations = []
+    for w in range(num_poses):
+        cam = points - poses[w, :3, 3]
+        uv = cam[:, :2] / cam[:, 2:] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        observations += [Observation(w, p, uv[p]) for p in range(num_points)]
+    return poses, points, observations
+
+
 class WindowBundleAdjuster:
     """Builds observations from a keyframe window and refines its poses in
     place, on ``device`` (the card unless the caller asks for the CPU)."""
@@ -439,6 +605,17 @@ class WindowBundleAdjuster:
         self._pair_cache: dict = {}
         matcher_for(self.device)  # on the CPU: builds the C++ matcher now, not in the first gate
 
+    def capture_graphs(self, window_size: int) -> None:
+        """On a CUDA device, solve a synthetic window of each length from 2
+        to ``window_size``, so that every length's graph is captured, and
+        the solver's libraries loaded, before a thread that may not capture
+        needs them. Records no span; does nothing on other devices."""
+        if self.device.type != "cuda":
+            return
+        for num_poses in range(2, window_size + 1):
+            poses, points, observations = _synthetic_window(num_poses, self.K)
+            run_bundle_adjustment(poses, points, observations, self.K, self.config, device=self.device)
+
     def _gate_pair(self, key, a, b) -> np.ndarray:
         """(n, 2) gated match pairs of keyframes a and b (one upload of the
         two feature sets, one fetch)."""
@@ -461,7 +638,8 @@ class WindowBundleAdjuster:
         gives too little to solve. With a recorder, its three parts are
         spans: ``ba_gate`` (each pair gate the cache misses), ``ba_tracks``
         (track chaining, triangulation and the reprojection gate) and
-        ``ba_solve`` (the solve, which ends in its one fetch)."""
+        ``ba_solve`` (the solve, which ends in its one fetch; on a CUDA
+        device ``ba_graph_capture`` and ``ba_graph_replay`` inside it)."""
         if len(window) < 2:
             return None
         key = prng.key(0, self.device) if key is None else key.to(self.device)
@@ -485,7 +663,7 @@ class WindowBundleAdjuster:
         kept_points, observations = built
         with timed_event(self.recorder, "ba_solve", metadata={"points": len(kept_points)}):
             result = run_bundle_adjustment(poses, np.stack(kept_points), observations, self.K, self.config,
-                                           device=self.device)
+                                           device=self.device, recorder=self.recorder)
         self.last_diagnostics = result.diagnostics
         # Update-magnitude gate: a pose dragged beyond a share of the
         # keyframe spacing escaped along a weak monocular mode.
@@ -564,4 +742,7 @@ class WindowBundleAdjuster:
                 observations.append(Observation(k, pt_id, window[k].keypoints[feat].astype(np.float64)))
         if len(kept_points) < 8:
             return None
+        assert window_shapes(
+            len(window), [o.pose_index for o in observations], [o.point_index for o in observations], len(kept_points)
+        ), "the pair gate bounds every window's observations"
         return kept_points, observations

@@ -18,15 +18,22 @@ import numpy as np
 import torch
 
 
-def segment_table(ids, num_segments: int, device=None, keep=None) -> torch.Tensor:
+def segment_table(ids, num_segments: int, device=None, keep=None, width=None) -> torch.Tensor:
     """(num_segments, width) int64 table of the positions of each segment's
     members in ``ids``, ascending, padded with ``len(ids)``. Entries where
-    ``keep`` is False are left out (padding rows that add exact zeros)."""
+    ``keep`` is False are left out (padding rows that add exact zeros).
+    ``width`` (default: the largest segment's size) fixes the table's
+    width, so that the table's shape does not follow the ids; a segment
+    with more members raises."""
     ids = np.asarray(ids, dtype=np.int64).reshape(-1)
     pos = np.arange(len(ids)) if keep is None else np.flatnonzero(np.asarray(keep).reshape(-1))
     sel = ids[pos]
     counts = np.bincount(sel, minlength=num_segments)
-    width = max(1, int(counts.max(initial=0)))
+    largest = int(counts.max(initial=0))
+    if width is None:
+        width = max(1, largest)
+    elif largest > width:
+        raise ValueError(f"a segment of {largest} members exceeds the table's width {width}")
     order = np.argsort(sel, kind="stable")
     starts = np.cumsum(counts) - counts
     rank = np.arange(len(sel)) - starts[sel[order]]

@@ -32,7 +32,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mvslam_tpu_torch.backend.bundle_adjustment import WindowBundleAdjuster
+from mvslam_tpu_torch.backend.bundle_adjustment import BA_GRAPHS, WindowBundleAdjuster
 from mvslam_tpu_torch.backend.keyframes import Keyframe, KeyframeConfig, KeyframeManager
 from mvslam_tpu_torch.core import prng
 from mvslam_tpu_torch.core.determinism import DeterminismRegistry
@@ -770,10 +770,13 @@ class SLAMSystem:
             # frame's TTL, expiring the stream as ``deadline_expired``.
             # match+pose here captures the stream's graphs (the plane pads
             # every frame to ``num_features``, as the bootstrap frame is),
-            # while no other thread launches on the device.
+            # and window BA its graph of each window length, while no other
+            # thread launches on the device.
             feature_plane.warmup(frame)
             fs = bootstrap_frame(torch.from_numpy(np.array(frame)).to(self.device), self.config.feature)
             match_and_estimate(self._track_key, fs, fs, self._K_dev, self.config.feature, self.config.pose)
+            if self._local_ba is not None:
+                self._local_ba.capture_graphs(self.config.keyframe.window_size)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -807,6 +810,7 @@ class SLAMSystem:
                             # From here on the feature plane launches on the
                             # device from its own thread: no call captures.
                             after_warm.enter_context(PAIR_GRAPHS.captures_closed())
+                            after_warm.enter_context(BA_GRAPHS.captures_closed())
                         frame_id = self._frame_count
                         self._frame_count += 1
                         control_plane.submit_frame(frame_id, packet.timestamp, frame)

@@ -2,7 +2,8 @@
 plain PyTorch versions at every shape the benchmark's cells and the paths
 here launch them at, alone and inside LK and ``SLAMSystem``; the back end's
 BA and Gauss-Newton cores on the card against the same calls on the CPU,
-and bit-equal between two card runs; the bag-of-words stages, the device
+and bit-equal between two card runs; window BA's captured graphs against
+its eager solve, and a live stream that replays them from its first BA; the bag-of-words stages, the device
 index and the native matcher on the card; the live path, the runner's
 ingestion modes, flow-first tracking, the offline CLI from PNG files and
 the accuracy gate's scenes through the port on the card. Timing is the
@@ -459,6 +460,122 @@ def test_slam_system_with_local_ba_on_the_card(cuda, tmp_path):
     assert system._local_ba.last_diagnostics is not None
     assert np.array_equal(run("ba_again")[2], poses)
     assert not np.array_equal(run("no_ba", local_ba=False)[2], poses)
+
+
+@pytest.fixture(scope="module")
+def bench_keyframes(tmp_path_factory):
+    """The keyframes of ``SLAMSystem`` on the card over 1 + 8 bench frames
+    at the default configuration with window BA off (every posed frame is
+    a keyframe), and a window adjuster with the system's intrinsics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    from mvslam_tpu_torch.backend.bundle_adjustment import WindowBundleAdjuster
+    from mvslam_tpu_torch.data.bench_frames import make_frames
+    from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+    cfg = SLAMSystemConfig(run_id="keyframes", output_root=tmp_path_factory.mktemp("keyframes"),
+                           enable_local_ba=False, enable_relocalization=False, persist_map_snapshot=False)
+    system = SLAMSystem(cfg, device="cuda")
+    for i, frame in enumerate(make_frames(9)):
+        system.process_frame(frame.astype(np.uint8), float(i))
+    assert len(system.keyframes) >= 7
+    return system.keyframes.keyframes, WindowBundleAdjuster(system.K, device="cuda")
+
+
+@pytest.mark.parametrize("num_poses", [2, 3, 4, 5])
+def test_ba_graph_replay_equals_the_eager_solve(cuda, bench_keyframes, monkeypatch, num_poses):
+    """Window BA over the first and the last window of ``num_poses`` bench
+    keyframes, each pair gated and chained by the adjuster on the card: a
+    fresh graph cache captures once, at the window's fixed shapes
+    (``window_shapes``), and every call replays, bit-equal to the eager
+    solve at the same shapes, which a cache with captures closed and no
+    entry falls back to: the packed solve (costs, conditioning, refined
+    poses and points, finite) before the gates, and the result after them.
+    Spans: one ``ba_graph_capture`` with the fixed shapes, a
+    ``ba_graph_replay`` per replayed call, none for the eager solves."""
+    from mvslam_tpu_torch.backend import bundle_adjustment as ba
+    from mvslam_tpu_torch.core import prng
+    from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder
+
+    keyframes, adjuster = bench_keyframes
+    key = prng.key(0, cuda)
+    graphs, closed = ba.BAGraphs(), ba.BAGraphs()
+    recorder = RunTelemetryRecorder()
+    packs = []
+    with_conditioning = ba._with_conditioning
+    monkeypatch.setattr(ba, "_with_conditioning", lambda *a: packs.append(with_conditioning(*a).cpu()) or packs[-1])
+    for start in (0, len(keyframes) - num_poses):
+        window = keyframes[start : start + num_poses]
+        poses = np.stack([kf.pose for kf in window])
+        gated = [adjuster._gate_pair(key, a, b) for a, b in zip(window[:-1], window[1:])]
+        points, obs = adjuster._observations(window, poses, gated)
+        monkeypatch.setattr(ba, "BA_GRAPHS", graphs)
+        replayed = [ba.run_bundle_adjustment(poses, np.stack(points), obs, adjuster.K, device=cuda, recorder=recorder)
+                    for _ in range(2)]
+        monkeypatch.setattr(ba, "BA_GRAPHS", closed)
+        with closed.captures_closed():
+            eager = ba.run_bundle_adjustment(poses, np.stack(points), obs, adjuster.K, device=cuda, recorder=recorder)
+        *graph_packs, eager_pack = packs[-3:]
+        assert torch.isfinite(eager_pack).all(), start
+        for got, pack in zip(replayed, graph_packs):
+            assert torch.equal(pack.view(torch.int32), eager_pack.view(torch.int32)), start
+            assert np.array_equal(got.poses, eager.poses) and np.array_equal(got.points, eager.points), start
+            assert got.diagnostics == eager.diagnostics, start
+    assert len(packs) == 6
+    assert len(graphs.entries(cuda)) == 1 and not closed.entries(cuda)
+    events = recorder.events()
+    captures = [e for e in events if e.name == "ba_graph_capture"]
+    assert len(captures) == 1
+    budget, pbudget, widths = ba.window_shapes(num_poses, [], [], 0)
+    assert captures[0].metadata["inputs"][1] == [[pbudget, 3], "float32"]
+    assert captures[0].metadata["inputs"][2] == [[budget], "int64"]
+    assert captures[0].metadata["inputs"][7] == [[num_poses, widths[0]], "int64"]
+    assert [e.name for e in events].count("ba_graph_replay") == 4
+
+
+def test_run_stream_async_first_in_its_process_replays_every_ba(cuda, tmp_path):
+    """``run_stream_async`` at the default configurations over 1 + 12 bench
+    frames as the first work of a fresh process (nothing captured, no
+    solver library loaded): its warm-up captures window BA's graph of each
+    window length, so every window BA in the stream replays one (as many
+    ``ba_graph_replay`` as ``ba_solve`` spans, no capture in the stream)
+    and no frame expires or drops waiting for the first solve."""
+    import subprocess
+    import sys
+    import textwrap
+
+    script = textwrap.dedent(
+        """
+        import json, sys
+        import numpy as np
+        from mvslam_tpu_torch.data.bench_frames import make_frames
+        from mvslam_tpu_torch.runtime.frame_stream import packets_from_arrays
+        from mvslam_tpu_torch.slam.api import SLAMSystem, SLAMSystemConfig
+
+        frames = [f.astype(np.uint8) for f in make_frames(13)]
+        live = SLAMSystem(SLAMSystemConfig(run_id="first", output_root=sys.argv[1]), device="cuda")
+        diags = live.run_stream_async(packets_from_arrays(frames))
+        names = [e.name for e in live.telemetry.events()]
+        report = live.store.load_report("control_plane_report")
+        print(json.dumps({
+            "posed": sum(d.pose_success for d in diags[1:]),
+            "frames": len(diags),
+            "spans": {n: names.count(n) for n in ("ba_solve", "ba_graph_replay", "ba_graph_capture")},
+            "failed": report["snapshots"]["feature"]["failed"],
+            "dropped": report["snapshots"]["tracking"]["dropped"],
+            "events": report["events"],
+        }))
+        """
+    )
+    run = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                         timeout=900)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["frames"] == 13 and got["posed"] >= 11, got
+    spans = got["spans"]
+    assert spans["ba_solve"] >= 8 and spans["ba_graph_replay"] == spans["ba_solve"], got
+    assert spans["ba_graph_capture"] == 0, got
+    assert got["failed"] == 0 and got["dropped"] == 0 and not got["events"], got
 
 
 def test_argmin_and_stable_topk_tie_order_on_the_card(cuda):
@@ -1130,7 +1247,7 @@ def _kitti_pose_config():
 
 
 def _assert_tracks_equal(got, want):
-    from mvslam_tpu_torch.slam.pair_graphs import _flatten
+    from mvslam_tpu_torch.core.graphs import _flatten
 
     for name, a, b in zip(_leaf_names(want), _flatten(got), _flatten(want)):
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -1161,7 +1278,8 @@ def test_pair_graph_replay_equals_the_eager_stages(cuda, cell, batch, num_featur
     from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder
     from mvslam_tpu_torch.frontend.feature_pipeline import FeatureSet
     from mvslam_tpu_torch.slam import tracking
-    from mvslam_tpu_torch.slam.pair_graphs import PairGraphs, _flatten
+    from mvslam_tpu_torch.core.graphs import _flatten
+    from mvslam_tpu_torch.slam.pair_graphs import PairGraphs
 
     keys, f1, f2, K, fc = _pair_inputs(cuda, batch, num_features)
     pc = _kitti_pose_config()

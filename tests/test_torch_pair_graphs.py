@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from mvslam_tpu_torch.core import prng
+from mvslam_tpu_torch.core.graphs import _flatten, _pack, _unflatten, signature
 from mvslam_tpu_torch.core.telemetry import RunTelemetryRecorder
 from mvslam_tpu_torch.frontend.feature_pipeline import FeaturePipelineConfig, FeatureSet
 from mvslam_tpu_torch.frontend.pose_estimator import RobustPoseEstimatorConfig
@@ -20,7 +21,7 @@ from mvslam_tpu_torch.geometry import epipolar
 from mvslam_tpu_torch.ops import hamming, ransac
 from mvslam_tpu_torch.ops.hamming import MatchConfig
 from mvslam_tpu_torch.slam import tracking
-from mvslam_tpu_torch.slam.pair_graphs import PairGraphs, _flatten, _pack, _unflatten, signature
+from mvslam_tpu_torch.slam.pair_graphs import PairGraphs
 
 
 def _features(batch, n, device="cpu", xy_dtype=torch.float32):
